@@ -1,0 +1,171 @@
+"""upfirdn2d: upsample -> pad -> 2-D FIR filter -> downsample, on NCHW tensors.
+
+Same semantics and argument forms as the JAX package's upfirdn2d (the
+reference's `upfirdn2d_native`):
+
+  1. zero-stuff each pixel with (up - 1) trailing zeros per axis,
+  2. pad by (pad0, pad1) per axis (negative pads crop),
+  3. cross-correlate with the flipped kernel (a true convolution),
+  4. keep every `down`-th output pixel.
+
+  out = (in * up + pad0 + pad1 - k) // down + 1   per spatial axis.
+
+`upfirdn2d` launches the CUDA kernel (csrc/upfirdn2d.cu) for a CUDA tensor and
+runs `upfirdn2d_plain` for a CPU tensor, and does nothing else. The kernel has
+no backward yet: autograd through it on the card raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence
+
+import numpy as np
+import torch
+
+
+def make_resample_kernel(k: Sequence[float]) -> np.ndarray:
+    """Normalized 2-D FIR taps from a 1-D (separable, outer(k, k)) or 2-D
+    tap list; the taps sum to 1 (reference stylegan2/model.py make_kernel)."""
+    k = np.asarray(k, dtype=np.float32)
+    if k.ndim == 1:
+        k = np.outer(k, k)
+    return k / np.sum(k)
+
+
+def _as_pair(v) -> tuple[int, int]:
+    if isinstance(v, (tuple, list)):
+        a, b = v
+        return int(a), int(b)
+    return int(v), int(v)
+
+
+def _parse(up, down, pad):
+    """((up_x, up_y), (down_x, down_y), (p_x0, p_x1, p_y0, p_y1))."""
+    if len(pad) == 2:
+        p = (int(pad[0]), int(pad[1]), int(pad[0]), int(pad[1]))
+    elif len(pad) == 4:
+        p = tuple(int(v) for v in pad)
+    else:
+        raise ValueError(f"pad must have 2 or 4 entries, got {pad!r}")
+    (up_x, up_y), (down_x, down_y) = _as_pair(up), _as_pair(down)
+    if min(up_x, up_y, down_x, down_y) < 1:
+        raise ValueError(f"up and down must be >= 1, got up={up!r} down={down!r}")
+    return (up_x, up_y), (down_x, down_y), p
+
+
+def _out_size(n, up, p0, p1, k, down):
+    return (n * up + p0 + p1 - k) // down + 1
+
+
+def _taps(kernel, device) -> torch.Tensor:
+    k = torch.as_tensor(kernel, dtype=torch.float32, device=device)
+    if k.ndim != 2:
+        raise ValueError(f"kernel must be 2-D (kh, kw), got shape {tuple(k.shape)}")
+    return k
+
+
+def upfirdn2d_plain(x, kernel, up=1, down=1, pad=(0, 0)):
+    """Plain-torch upfirdn2d on (N, C, H, W): explicit zero-stuff, pad/crop,
+    correlation with the flipped taps as a sum of shifted slices, stride.
+    fp32 accumulation; the result has x's dtype."""
+    (up_x, up_y), (down_x, down_y), (p_x0, p_x1, p_y0, p_y1) = _parse(up, down, pad)
+    k = _taps(kernel, x.device)
+    kh, kw = k.shape
+    n, c, h, w = x.shape
+    xf = x.float()
+    z = xf.new_zeros((n, c, h * up_y, w * up_x))
+    z[:, :, ::up_y, ::up_x] = xf
+    # F.pad-style pads: negative values crop
+    z = torch.nn.functional.pad(z, (p_x0, p_x1, p_y0, p_y1))
+    oh = (z.shape[2] - kh) // down_y + 1
+    ow = (z.shape[3] - kw) // down_x + 1
+    kflip = torch.flip(k, (0, 1))
+    out = xf.new_zeros((n, c, oh, ow))
+    for ky in range(kh):
+        for kx in range(kw):
+            tap = z[:, :, ky: ky + (oh - 1) * down_y + 1: down_y,
+                    kx: kx + (ow - 1) * down_x + 1: down_x]
+            out = out + kflip[ky, kx] * tap
+    return out.to(x.dtype)
+
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _forward_fn():
+    """The C entry point of csrc/upfirdn2d.cu, built at first use."""
+    from diagan_tpu_torch.ops import _build
+
+    fn = _build.load("upfirdn2d").upfirdn2d_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 8
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    return fn
+
+
+def _launch(x, taps, up, down, pad):
+    from diagan_tpu_torch.ops import _build
+
+    (up_x, up_y), (down_x, down_y), (p_x0, p_x1, p_y0, p_y1) = _parse(up, down, pad)
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"upfirdn2d kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.ndim != 4:
+        raise ValueError(f"upfirdn2d takes (N, C, H, W), got shape {tuple(x.shape)}")
+    if x.is_contiguous():
+        fmt = torch.contiguous_format
+    elif x.is_contiguous(memory_format=torch.channels_last):
+        fmt = torch.channels_last
+    else:
+        raise ValueError("upfirdn2d kernel takes a contiguous NCHW or channels-last tensor")
+    if taps.device != x.device or taps.dtype != torch.float32 or not taps.is_contiguous():
+        raise ValueError("taps must be a contiguous float32 tensor on x's device")
+    n, c, h, w = x.shape
+    kh, kw = taps.shape
+    oh = _out_size(h, up_y, p_y0, p_y1, kh, down_y)
+    ow = _out_size(w, up_x, p_x0, p_x1, kw, down_x)
+    if oh <= 0 or ow <= 0:
+        raise ValueError(f"upfirdn2d output would be empty ({oh}x{ow})")
+    y = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device, memory_format=fmt)
+    sx, sy = x.stride(), y.stride()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _forward_fn()(x.data_ptr(), y.data_ptr(), taps.data_ptr(),
+                            _DTYPE_CODE[x.dtype], n, c, h, w, oh, ow, *sx, *sy,
+                            kh, kw, up_x, up_y, down_x, down_y, p_x0, p_y0, stream)
+    if err != 0:
+        raise RuntimeError(f"upfirdn2d kernel launch failed: cudaError {err}")
+    _build.LAUNCHES["upfirdn2d"] += 1
+    return y
+
+
+class _Upfirdn2dCUDA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, taps, up, down, pad):
+        return _launch(x, taps, up, down, pad)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "upfirdn2d has no backward kernel on CUDA yet (it comes with the "
+            "training slice); run sampling under torch.no_grad()")
+
+
+def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
+    """Fused upsample-FIR-downsample on (N, C, H, W).
+
+    Args:
+      x: (N, C, H, W) tensor; on CUDA it must be contiguous NCHW or channels-last.
+      kernel: (kh, kw) FIR taps (see `make_resample_kernel`), array or tensor.
+      up / down: int or (x, y) pair of integer resampling factors.
+      pad: (pad0, pad1) for both spatial axes, or (x0, x1, y0, y1).
+
+    Returns (N, C, H', W') with H' = (H*up + pad0 + pad1 - kh)//down + 1.
+    """
+    if x.device.type == "cpu":
+        return upfirdn2d_plain(x, kernel, up, down, pad)
+    if x.device.type != "cuda":
+        raise ValueError(f"upfirdn2d runs on cpu or cuda tensors, got {x.device}")
+    taps = _taps(kernel, x.device).contiguous()
+    return _Upfirdn2dCUDA.apply(x, taps, up, down, pad)
