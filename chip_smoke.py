@@ -1,15 +1,22 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (diagan_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. card name and power limit (nvidia-smi); TF32 off for convs and matmuls;
-  2. build the CUDA kernels from csrc/ (nvcc, sm_90a) and compile the Triton one;
-  3. each kernel against its plain-torch version on the card: upfirdn2d on
-     the tests/test_ops.py configs, an asymmetric rank-2 and a 1-D (1, k)
-     kernel, and every StyleGAN2-256 shape at batch 16, in fp32 and bf16;
-     fused bias-LeakyReLU at the real shapes in fp32 and bf16;
+  2. build the CUDA kernels from csrc/ (nvcc, sm_90a, one process per source,
+     all started together) and compile the Triton ones;
+  3. each serving kernel against its plain-torch version on the card:
+     upfirdn2d on the tests/test_ops.py configs, an asymmetric rank-2 and a
+     1-D (1, k) kernel, and every StyleGAN2-256 shape at batch 16, in fp32
+     and bf16; fused bias-LeakyReLU at the real shapes in fp32 and bf16;
+  3b. the training kernels against their plain versions: the fused-act
+     backward (dx, db, double backward) at every activation shape, fp32 and
+     bf16; the upfirdn2d backward and double backward at every G/D blur and
+     every ADA 12-tap pass at each pad bucket; ADA's warp gather and its
+     adjoint at each bucket's S2, six geometries and one batch of ADA draws
+     (--kernels-only stops here);
   4. the serving slice at full width (StyleGAN2-256, channel_multiplier 2,
      style_dim 512, n_mlp 8, random weights from a seed): save a checkpoint,
      run cli.generate, draw DRS samples, with the launch counts zeroed before
@@ -18,12 +25,23 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. timings at the real shapes: kernel, plain version, one PyTorch library
      call for the same function, and the bytes/ops bound; G images/s, DRS
      accepted samples/s, and a torch.profiler breakdown of one DRS proposal
-     batch (device time by kernel, idle share).
+     batch (device time by kernel, idle share);
+  6. the training path at full width on 512 synthetic images: cli.train_ffhq
+     for 8 steps with ADA at a fixed p = 0.3, R1 and path regularisation and
+     logit sweeps; cli.train_ffhq_phase2 for 4 steps from that checkpoint with
+     the LDR scores and the twin DRS discriminator; cli.generate and DRS on
+     the phase-2 checkpoint; every kernel launched on each training path;
+  6b. one training step's gradients (D loss, R1, G through ADA, path
+     length), card against CPU at 32 px, width 1/4, with injected draws;
+  7. the training kernels at their largest path shapes (kernel, plain,
+     library, bound), ms per plain / path / R1 step, peak device memory and a
+     profile of one ADA-live step.
 The last lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a card it exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import shutil
@@ -70,16 +88,18 @@ def bf16_ulp(v):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
-def profile_proposal(gen_fn, disc_fn, z, smi):
-    """Device time by kernel over one DRS proposal batch (G then D), from
-    torch.profiler; the idle share is 1 - device busy time / wall time."""
+def profile(fn, label, smi, tags):
+    """Device time by kernel over one call of fn, from torch.profiler. Device
+    busy time is the union of the kernels' intervals (kernels on other
+    streams may overlap, so their summed times can exceed the wall time);
+    the idle share is 1 - busy / wall."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        disc_fn(gen_fn(z))
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device kernels only: the CPU-side ops that launched them report the
@@ -87,20 +107,561 @@ def profile_proposal(gen_fn, disc_fn, z, smi):
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
-    if busy == 0:
-        print("profile: the profiler recorded no device time (not measured)")
+    total = sum(r[1] for r in rows)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, lo, hi = 0.0, None, None
+    for start, end in spans + [(math.inf, math.inf)]:
+        if hi is not None and start > hi:
+            busy, lo = busy + hi - lo, None
+        if lo is None:
+            lo, hi = start, end
+        hi = max(hi, end)
+    busy /= 1e3
+    if total == 0:
+        print(f"profile of {label}: the profiler recorded no device time (not measured)")
         return
-    print(f"profile of one proposal batch ({z.shape[0]} images, G + D): wall {wall_ms:.2f} ms, "
-          f"device busy {busy:.2f} ms, idle share {1 - busy / wall_ms:.4f} [{smi}]")
-    for name, ms, count in rows[:10]:
-        print(f"  {ms:9.3f} ms {100 * ms / busy:6.2f}%  x{count:<4d} {name[:90]}")
-    for tag in ("upfirdn2d_kernel", "flr_fwd"):
+    print(f"profile of {label}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms (union of "
+          f"kernel intervals; kernel times sum to {total:.2f} ms), idle share "
+          f"{1 - busy / wall_ms:.4f} [{smi}]")
+    for name, ms, count in rows[:12]:
+        print(f"  {ms:9.3f} ms {100 * ms / total:6.2f}%  x{count:<4d} {name[:90]}")
+    for tag in tags:
         ms = sum(r[1] for r in rows if tag in r[0])
-        print(f"  {tag}: {ms:.3f} ms, {100 * ms / busy:.2f}% of device time")
+        print(f"  {tag}: {ms:.3f} ms, {100 * ms / total:.2f}% of summed kernel time")
+
+FORWARD_KERNELS = ("upfirdn2d", "fused_leaky_relu")  # what sampling launches
+N_DATA = 512  # synthetic training images
+# tests/test_warp_pallas.py geometries, [ay, by, cy, ax, bx, cx] at s2 = 128;
+# the offsets cy, cx scale with s2
+_TH = 0.6
+WARP_CASES = {
+    "identity": [1.0, 0.0, 30.0, 0.0, 1.0, 30.0],
+    "rot_scale": [1.3 * math.cos(_TH), -1.3 * math.sin(_TH), 30.0,
+                  1.3 * math.sin(_TH), 1.3 * math.cos(_TH), 20.0],
+    "flip": [1.0, 0.0, 30.0, 0.0, -1.0, 90.0],
+    "shrink": [0.4, 0.02, 40.0, -0.02, 0.4, 40.0],
+    "clipped": [0.8, 0.1, -3.0, -0.2, 1.1, 120.0],
+    "fractional": [1.01, -0.3, 17.25, 0.3, 0.97, 33.75],
+}
 
 
-def main():
+def resolutions():
+    return [2**j for j in range(2, int(math.log2(SIZE)) + 1)]
+
+
+def ada_pads():
+    """ADA's reflect pad of each bucket at SIZE: fractions (0.25, 0.5) and pad_frac 0.75."""
+    from diagan_tpu_torch.models.ada import PAD_K
+
+    return [min(SIZE - 1, int(f * SIZE) + PAD_K) for f in (0.25, 0.5, 0.75)]
+
+
+def ada_win():
+    from diagan_tpu_torch.models.ada import PAD_K
+
+    return 2 * SIZE + 2 * PAD_K
+
+
+def ada_coef(P, seed):
+    """Warp coefficients (16, 6) of one batch of real ADA draws at p = 1."""
+    from diagan_tpu_torch.models import ada
+
+    G = ada.sample_affine_matrices(16, 1.0, SIZE, SIZE, torch.Generator().manual_seed(seed))
+    return ada._warp_coef(torch.linalg.inv(G), SIZE, P).contiguous()
+
+
+def max_err(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
+def check_act_backward(dev, rng, ch):
+    """Fused-act backward kernels against the plain version at every
+    activation shape of the training path (batch 16, and 8 for path
+    regularisation), fp32 and bf16: dx, db, and the double backward's
+    mask applied to gg_dx + gg_db. Then one second derivative through the
+    autograd Functions against autograd through the plain forward."""
+    from diagan_tpu_torch.ops import (
+        fused_leaky_relu,
+        fused_leaky_relu_backward,
+        fused_leaky_relu_backward_plain,
+        fused_leaky_relu_plain,
+    )
+
+    shapes = [(b, STYLE_DIM) for b in (16, 8)]
+    shapes += [(b, ch[r], r, r) for b in (16, 8) for r in resolutions()]
+    err = {"dx": 0.0, "db": 0.0, "double": 0.0}
+    for shape in shapes:
+        g32, y32, gg32 = (torch.randn(shape, generator=rng, device=dev) for _ in range(3))
+        extra = torch.randn(shape[1], generator=rng, device=dev)
+        dims = (0,) + tuple(range(2, len(shape)))
+        for dt in (torch.float32, torch.bfloat16):
+            g, y, gg = g32.to(dt), y32.to(dt), gg32.to(dt)
+            dx, db = fused_leaky_relu_backward(g, y)
+            dg, none = fused_leaky_relu_backward(gg, y, extra=extra, sums=False)
+            torch.cuda.synchronize()
+            dx_p, db_p = fused_leaky_relu_backward_plain(g, y)
+            dg_p, _ = fused_leaky_relu_backward_plain(gg, y, extra=extra, sums=False)
+            check(none is None and dx.dtype == dt and db.dtype == torch.float32,
+                  f"fused_leaky_relu_backward {shape} {dt} outputs")
+            for name, got, want in (("dx", dx, dx_p), ("double", dg, dg_p)):
+                diff = (got.float() - want.float()).abs()
+                if dt == torch.float32:  # the same rounding steps as the plain version
+                    err[name] = max(err[name], diff.max().item())
+                    check(diff.max().item() <= 1e-6 * max(1.0, want.abs().max().item()),
+                          f"fused_leaky_relu_backward {name} {shape} fp32 err {diff.max().item()}")
+                else:
+                    check(bool((diff <= bf16_ulp(want)).all()),
+                          f"fused_leaky_relu_backward {name} {shape} bf16 differs by more than 1 ulp")
+            # db: the same fp32 sum of the rounded dx, taken in another order
+            diff = (db - db_p).abs()
+            check(bool((diff <= 1e-5 * dx_p.float().abs().sum(dims)).all()),
+                  f"fused_leaky_relu_backward db {shape} {dt} err {diff.max().item()}")
+            if dt == torch.float32:
+                err["db"] = max(err["db"], diff.max().item())
+    shape = (16, ch[64], 64, 64)
+    x, u = (torch.randn(shape, generator=rng, device=dev, requires_grad=True) for _ in range(2))
+    b = torch.randn(shape[1], generator=rng, device=dev, requires_grad=True)
+    a = torch.randn(shape, generator=rng, device=dev)
+    cb = torch.randn(shape[1], generator=rng, device=dev)
+
+    def second(f):  # d/du of <dx, a> + <db, cb>, with (dx, db) the grads of <f(x, b), u>
+        dx, db = torch.autograd.grad((f(x, b) * u).sum(), (x, b), create_graph=True)
+        return torch.autograd.grad((dx * a).sum() + (db * cb).sum(), u)[0]
+
+    want = second(fused_leaky_relu_plain)
+    e2 = max_err(second(fused_leaky_relu), want)
+    check(e2 <= 1e-6 * max(1.0, want.abs().max().item()),
+          f"fused_leaky_relu autograd double backward err {e2}")
+    print(f"fused_leaky_relu_backward: {len(shapes)} shapes x (fp32, bf16) match plain; fp32 max "
+          f"abs err dx {err['dx']:.3e}, db {err['db']:.3e}, double backward {err['double']:.3e} "
+          f"(tol dx 1e-6 x max(1, max|out|), bf16 1 ulp; db 1e-5 x sum|dx| per channel); "
+          f"autograd second derivative err {e2:.3e}")
+    return max(err.values())
+
+
+def check_fir_backward(dev, rng, ch, k4):
+    """The upfirdn2d backward and double backward (kernel A again) against
+    autograd through the plain version, at every G/D blur shape of the
+    training path and every ADA 12-tap pass at each pad bucket."""
+    from diagan_tpu_torch.models.ada import PAD_K, _sym6_taps
+    from diagan_tpu_torch.ops import upfirdn2d, upfirdn2d_plain
+
+    cases = []
+    for res in resolutions()[1:]:
+        cases.append(((16, ch[res], res + 1, res + 1), k4 * 4, 1, 1, (1, 1)))  # G up blur
+        cases.append(((16, 3, res // 2, res // 2), k4 * 4, 2, 1, (2, 1)))  # ToRGB skip
+    for res in resolutions()[1:]:
+        cases.append(((16, ch[res], res, res), k4, 1, 1, (2, 2)))  # D conv blur
+        cases.append(((16, ch[res], res, res), k4, 1, 1, (1, 1)))  # D skip blur
+    kyf, kxf, ky, kx = _sym6_taps(dev)
+    for P in ada_pads():
+        s = SIZE + 2 * P
+        cases.append(((16, 3, s, s), kyf, (1, 2), 1, (0, 0, PAD_K, PAD_K - 1)))
+        cases.append(((16, 3, 2 * s, s), kxf, (2, 1), 1, (PAD_K, PAD_K - 1, 0, 0)))
+    win = ada_win()
+    cases.append(((16, 3, win, win), ky, 1, (1, 2), (0, 0, PAD_K - 1, PAD_K - 1)))
+    cases.append(((16, 3, win // 2, win), kx, 1, (2, 1), (PAD_K - 1, PAD_K - 1, 0, 0)))
+    err = 0.0
+    for shape, taps, up, down, pad in cases:
+        x = torch.randn(shape, generator=rng, device=dev, requires_grad=True)
+        v = torch.randn(shape, generator=rng, device=dev)
+        w = None
+        res = []
+        for f in (upfirdn2d, upfirdn2d_plain):
+            y = f(x, taps, up, down, pad)
+            if w is None:
+                w = torch.randn(y.shape, generator=rng, device=dev, requires_grad=True)
+            (gx,) = torch.autograd.grad(y, x, w, create_graph=True)
+            (gw,) = torch.autograd.grad((gx * v).sum(), w)
+            res.append((gx.detach(), gw))
+        torch.cuda.synchronize()
+        for what, got, want in zip(("backward", "double backward"), *res):
+            e = max_err(got, want)
+            check(e <= 1e-5 * want.abs().max().item(),
+                  f"upfirdn2d {what} {shape} up={up} down={down} pad={pad}: err {e}")
+            err = max(err, e)
+        del x, v, w, res
+    print(f"upfirdn2d backward: {len(cases)} shapes (G/D blurs, ADA 12-tap passes at pads "
+          f"{ada_pads()}) match autograd through plain, backward and double backward; "
+          f"max abs err {err:.3e} (tol 1e-5 x max|out|)")
+    return err
+
+
+def check_warp(dev, rng):
+    """The warp gather and its adjoint against the plain versions at each
+    ADA bucket's S2 and win: six geometries and one batch of ADA draws."""
+    from diagan_tpu_torch.ops import (
+        affine_gather,
+        affine_gather_plain,
+        affine_scatter,
+        affine_scatter_plain,
+    )
+
+    win = ada_win()
+    err_g = err_s = 0.0
+    exact = True
+    for P in ada_pads():
+        s2 = 2 * (SIZE + 2 * P)
+        x2 = torch.randn((16, 3, s2, s2), generator=rng, device=dev)
+        g = torch.randn((16, 3, win, win), generator=rng, device=dev)
+        f = s2 / 128
+        coefs = {name: torch.tensor([ay, by, cy * f, ax, bx, cx * f], device=dev).expand(16, 6)
+                 for name, (ay, by, cy, ax, bx, cx) in WARP_CASES.items()}
+        coefs["ada_p1"] = ada_coef(P, SEED).to(dev)
+        for name, coef in coefs.items():
+            coef = coef.contiguous()
+            out, dx2 = affine_gather(x2, coef, win), affine_scatter(g, coef, s2)
+            torch.cuda.synchronize()
+            want, want_dx2 = affine_gather_plain(x2, coef, win), affine_scatter_plain(g, coef, s2)
+            e = max_err(out, want)
+            exact = exact and e == 0.0
+            check(e <= 1e-6 * want.abs().max().item(), f"affine gather {name} s2={s2}: err {e}")
+            # atomics add in a run-dependent order; clamped coordinates pile
+            # hundreds of terms onto the edge pixels
+            atol = 2e-4 if name == "clipped" else 2e-5
+            diff = (dx2 - want_dx2).abs()
+            check(bool((diff <= atol + 1e-4 * want_dx2.abs()).all()),
+                  f"affine scatter {name} s2={s2}: err {diff.max().item()}")
+            err_g, err_s = max(err_g, e), max(err_s, diff.max().item())
+        del x2, g
+    print(f"affine warp: S2 {[2 * (SIZE + 2 * P) for P in ada_pads()]}, win {win}, "
+          f"{len(WARP_CASES)} geometries + ADA draws at p=1: gather max abs err {err_g:.3e} "
+          f"({'bit-exact' if exact else 'not bit-exact'}; tol 1e-6 x max|out|), adjoint "
+          f"{err_s:.3e} (tol 2e-5, clipped 2e-4, + 1e-4 x |want|)")
+    return err_g, err_s
+
+
+def train_path(dev, smi, work):
+    """The training path at full width through its CLIs: phase 1 (ADA at a
+    fixed p, R1, path regularisation, logit sweeps), phase 2 from that
+    checkpoint with the LDR scores and the twin DRS D, then cli.generate and
+    DRS on the phase-2 checkpoint. Launch counts are zeroed before and read
+    after each path. Returns (phase-1 trainer, {path: launches})."""
+    import pickle
+
+    from diagan_tpu_torch.cli import generate, train_ffhq, train_ffhq_phase2
+    from diagan_tpu_torch.data.synthetic import synthetic_natural
+    from diagan_tpu_torch.eval.drs import DRS
+    from diagan_tpu_torch.eval.evaluate import make_disc_fn, make_gen_fn, read_stylegan2_ckpt
+    from diagan_tpu_torch.models.stylegan2 import StyleGAN2Discriminator, StyleGAN2Generator
+    from diagan_tpu_torch.ops import _build
+
+    data = work / "data"
+    data.mkdir(parents=True)
+    t0 = time.perf_counter()
+    np.save(data / f"ffhq_{SIZE}.npy", synthetic_natural(N_DATA, SIZE, seed=7)[0])
+    print(f"dataset: {N_DATA} synthetic {SIZE} px images in {time.perf_counter() - t0:.2f} s")
+    common = ["-d", "ffhq", "-r", str(data), "--size", str(SIZE), "--batch", "16",
+              "--augment", "--augment_p", "0.3", "--work_dir", str(work),
+              "--seed", str(SEED), "--device", dev.type]
+    launches = {}
+
+    def drive(name, fn, kernels):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = dict(_build.LAUNCHES)
+        check(all(launches[name][k] > 0 for k in kernels), f"{name} launches {launches[name]}")
+        print(f"{name}: {time.perf_counter() - t0:.2f} s, launches {launches[name]}")
+        return out
+
+    def finite(tr, keys):
+        m = {k: float(v) for k, v in tr.metrics.items()}
+        check(all(math.isfinite(v) for v in m.values()), f"non-finite metrics {m}")
+        check(set(keys) <= set(m), f"metrics {sorted(m)}")
+        return "; ".join(f"{k} {v:.4f}" for k, v in m.items())
+
+    torch.cuda.reset_peak_memory_stats()
+    tr1 = drive("train_ffhq (8 steps)", lambda: train_ffhq.main(
+        common + ["--exp_name", "p1", "--iter", "8", "--logit_save_steps", "2",
+                  "--save_logit_after", "0"]), tuple(_build.LAUNCHES))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 1 metrics: {finite(tr1, ('d', 'g', 'r1', 'path'))}; peak device memory "
+          f"{peak / 2**30:.2f} GiB [{smi}]")
+    ckpt1, pkl = work / "p1" / "checkpoint" / "000008.pt", work / "p1" / "logits_netD.pkl"
+    check(ckpt1.is_file() and pkl.is_file(), "phase 1 wrote no checkpoint or logits")
+    with open(pkl, "rb") as f:
+        logits = pickle.load(f)
+    check(sorted(logits) == [2, 4, 6], f"logit steps {sorted(logits)}")
+    check(all(v.shape == (N_DATA,) and np.isfinite(v).all() for v in logits.values()),
+          "logits shape or values")
+
+    tr2 = drive("train_ffhq_phase2 (4 steps)", lambda: train_ffhq_phase2.main(
+        common + ["--exp_name", "p2", "--baseline_exp_name", "p1", "--p1_step", "8",
+                  "--resample_score", "ldr_conf_3.0_ratio_50", "--iter", "12"]),
+        tuple(_build.LAUNCHES))
+    ckpt2 = work / "p2" / "checkpoint" / "000012.pt"
+    check(ckpt2.is_file() and tr2.weights is not None and tr2.drs_disc is not None,
+          "phase 2 checkpoint, weights or drs_d missing")
+    print(f"phase 2 metrics (steps 8-11: no R1 step): {finite(tr2, ('d', 'g', 'path'))}")
+
+    imgs = drive("cli.generate (phase-2 checkpoint)", lambda: generate.main(
+        ["--size", str(SIZE), "--sample", "4", "--pics", "1", "--ckpt", str(ckpt2),
+         "--out_dir", str(work / "p2_samples"), "--seed", str(SEED), "--device", dev.type]),
+        FORWARD_KERNELS)
+    check(imgs.shape == (4, SIZE, SIZE, 3) and np.isfinite(imgs).all(), "generate output")
+    g = StyleGAN2Generator(SIZE, STYLE_DIM, N_MLP, CH_MULT, device=dev)
+    d = StyleGAN2Discriminator(SIZE, CH_MULT, device=dev)
+    read_stylegan2_ckpt(ckpt2, g, d, use_drs=True)
+    check(all(torch.equal(a, b) for a, b in zip(d.state_dict().values(),
+                                                tr2.drs_disc.state_dict().values())),
+          "read_stylegan2_ckpt did not load drs_d")
+    drs = DRS(make_gen_fn(g, generator=torch.Generator(dev).manual_seed(SEED)), make_disc_fn(d),
+              STYLE_DIM, generator=torch.Generator(dev).manual_seed(SEED + 1), batch_size=16,
+              warmup_batches=2, device=dev)
+    acc = drive("DRS (phase-2 checkpoint)", lambda: drs.generate_images(16), FORWARD_KERNELS)
+    check(acc.shape == (16, SIZE, SIZE, 3) and np.isfinite(acc).all(), "DRS output")
+    return tr1, launches
+
+
+def grads_card_vs_cpu(dev, work):
+    """One training step's pieces, card against CPU, at 32 px and width 1/4
+    with the same weights and the same injected draws: the D loss with ADA
+    at p = 1, R1, the G step through ADA, and path regularisation. Each
+    piece starts from the CPU side's weights."""
+    import copy
+
+    from diagan_tpu_torch.data.synthetic import synthetic_natural
+    from diagan_tpu_torch.models.ada import sample_augment
+    from diagan_tpu_torch.models.stylegan2 import (
+        NoiseInjection,
+        StyleGAN2Discriminator,
+        StyleGAN2Generator,
+    )
+    from diagan_tpu_torch.train.stylegan2_trainer import FakeDraws, StyleGAN2Trainer
+
+    size, bs, width = 32, 4, 0.25
+    torch.manual_seed(SEED)
+    g_cpu = StyleGAN2Generator(size, STYLE_DIM, N_MLP, CH_MULT, width_scale=width, device="cpu")
+    d_cpu = StyleGAN2Discriminator(size, CH_MULT, width_scale=width, device="cpu")
+    with torch.no_grad():
+        for m in g_cpu.modules():
+            if isinstance(m, NoiseInjection):
+                m.weight.fill_(0.1)
+    rng = np.random.default_rng(SEED)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    real = torch.from_numpy(rng.uniform(-1, 1, (bs, size, size, 3)).astype(np.float32))
+    z1, z2 = normal(bs, STYLE_DIM), normal(bs, STYLE_DIM)
+    noises = [normal(*s) for s in g_cpu.synthesis.noise_shapes(bs)]
+    aug = [sample_augment(bs, 1.0, size, size, torch.Generator().manual_seed(k)) for k in range(3)]
+    zp = normal(bs // 2, STYLE_DIM)
+    noises_p = [normal(*s) for s in g_cpu.synthesis.noise_shapes(bs // 2)]
+    path_noise = normal(bs // 2, size, size, 3)
+    images = synthetic_natural(8, size, seed=3)[0]
+    tr = {side: StyleGAN2Trainer(work / side, copy.deepcopy(g_cpu).to(d),
+                                 copy.deepcopy(d_cpu).to(d), images, num_steps=1,
+                                 batch_size=bs, augment_p=1.0, device=d)
+          for side, d in (("cpu", torch.device("cpu")), ("card", dev))}
+
+    def fakes(d):
+        return FakeDraws(z1.to(d), z2.to(d), 3, [t.to(d) for t in noises])
+
+    pieces = {
+        "D loss (ADA p=1)": ("disc", lambda t, d: t.d_step(t.disc, t.d_optim, real.to(d),
+                                                           fakes(d), aug[0], aug[1])),
+        "R1": ("disc", lambda t, d: t.r1_step(t.disc, t.d_optim, real.to(d), aug[2])),
+        "G through ADA": ("gen", lambda t, d: t.g_step(fakes(d), aug[0])),
+        "path length": ("gen", lambda t, d: t.path_step(
+            zp.to(d), [n.to(d) for n in noises_p], path_noise.to(d))),
+    }
+    for name, (net, run) in pieces.items():
+        cpu, card = tr["cpu"], tr["card"]
+        card.gen.load_state_dict(cpu.gen.state_dict())
+        card.disc.load_state_dict(cpu.disc.state_dict())
+        card.pl_mean = cpu.pl_mean.to(dev)
+        m_cpu, m_card = run(cpu, torch.device("cpu")), run(card, dev)
+        torch.cuda.synchronize()
+        want = [p.grad for p in getattr(cpu, net).parameters() if p.grad is not None]
+        got = [p.grad.cpu() for p in getattr(card, net).parameters() if p.grad is not None]
+        check(len(got) == len(want) > 0, f"{name}: gradient sets differ")
+        scale = max(1.0, max(w.abs().max().item() for w in want))
+        err = max(max_err(a, b) for a, b in zip(got, want))
+        check(err <= 1e-3 * scale, f"{name}: grad err {err} > 1e-3 x {scale}")
+        m_err = max(abs(float(m_card[k]) - float(m_cpu[k])) / max(1.0, abs(float(m_cpu[k])))
+                    for k in m_cpu)
+        check(m_err <= 1e-3, f"{name}: metrics {m_cpu} vs {m_card}")
+        print(f"card vs CPU, {name}: {len(want)} grads, max abs err {err:.3e} "
+              f"(max|grad| {scale:.3e}; tol 1e-3 x max(1, max|grad|)); "
+              f"metrics rel err {m_err:.3e}")
+
+
+def time_new_kernels(dev, rng, ch, k4, smi, launches, errs):
+    """The training path's kernels at their largest path shapes: kernel,
+    plain version, one PyTorch library call for the same function where
+    there is one, and the bytes/ops bound."""
+    import torch.nn.functional as F
+
+    from diagan_tpu_torch.ops import (
+        affine_gather,
+        affine_gather_plain,
+        affine_scatter,
+        affine_scatter_plain,
+        fused_leaky_relu_backward,
+        fused_leaky_relu_backward_plain,
+        upfirdn2d,
+        upfirdn2d_plain,
+    )
+    from diagan_tpu_torch.ops.warp import _taps as warp_taps
+
+    kernels = []
+    g = torch.randn((16, ch[SIZE], SIZE, SIZE), generator=rng, device=dev)
+    y = torch.randn(g.shape, generator=rng, device=dev)
+    n = g.numel()
+    b, by = bound(3 * n * 4 + ch[SIZE] * 4, 4 * n)
+    kernels.append({
+        "name": "fused_leaky_relu_backward", "route": "triton",
+        "source": "diagan_tpu_torch/ops/fused_act.py",
+        "replaces": "diagan_tpu/ops/fused_act.py:68",
+        "launches": launches["fused_leaky_relu_backward"], "max_abs_err": errs["flr_bwd"],
+        "ms": cuda_ms(lambda: fused_leaky_relu_backward(g, y)),
+        "plain_ms": cuda_ms(lambda: fused_leaky_relu_backward_plain(g, y)),
+        "bound_ms": b, "bound_by": by,
+        # no single PyTorch call masks, scales and sums per channel
+        "library_ms": None,
+        "shape": f"{tuple(g.shape)} fp32, dx and db (styled conv at {SIZE} px)",
+    })
+    del g, y
+
+    # upfirdn2d backward of the G upsample blur at SIZE: the flipped taps with
+    # pads (2, 2), i.e. one depthwise conv2d (correlation) with padding 2
+    x = torch.randn((16, ch[SIZE], SIZE + 1, SIZE + 1), generator=rng, device=dev,
+                    requires_grad=True)
+    taps = k4 * 4
+    out, out_p = upfirdn2d(x, taps, pad=(1, 1)), upfirdn2d_plain(x, taps, pad=(1, 1))
+    gy = torch.randn(out.shape, generator=rng, device=dev)
+    w_dw = taps.expand(x.shape[1], 1, 4, 4).contiguous()
+
+    def lib():
+        return F.conv2d(gy, w_dw, padding=2, groups=x.shape[1])
+
+    gx = torch.autograd.grad(out, x, gy, retain_graph=True)[0]
+    check(max_err(lib(), gx) <= 1e-5 * gx.abs().max().item(),
+          "depthwise conv2d yardstick disagrees with the upfirdn2d backward")
+    b, by = bound((gy.numel() + x.numel()) * 4, x.numel() * 16 * 2)
+    kernels.append({
+        "name": "upfirdn2d_backward", "route": "cuda", "source": "diagan_tpu_torch/csrc/upfirdn2d.cu",
+        "replaces": "diagan_tpu/ops/fir_pallas.py:44,131,226 (backward, _vjp_bwd:379)",
+        "launches": launches["upfirdn2d_backward"], "max_abs_err": errs["fir_bwd"],
+        "ms": cuda_ms(lambda: torch.autograd.grad(out, x, gy, retain_graph=True)),
+        "plain_ms": cuda_ms(lambda: torch.autograd.grad(out_p, x, gy, retain_graph=True),
+                            iters=3),
+        "bound_ms": b, "bound_by": by, "library_ms": cuda_ms(lib),
+        "shape": f"{tuple(gy.shape)} -> {tuple(x.shape)} fp32 4x4 taps "
+                 f"(G upsample blur backward at {SIZE} px)",
+    })
+    del x, out, out_p, gy, gx
+
+    # ADA's largest 12-tap pass backward: the x up-pass at the largest bucket
+    from diagan_tpu_torch.models.ada import PAD_K, _sym6_taps
+
+    s = SIZE + 2 * ada_pads()[-1]
+    kxf = _sym6_taps(dev)[1]
+    x = torch.randn((16, 3, 2 * s, s), generator=rng, device=dev, requires_grad=True)
+    out = upfirdn2d(x, kxf, up=(2, 1), pad=(PAD_K, PAD_K - 1, 0, 0))
+    gy = torch.randn(out.shape, generator=rng, device=dev)
+    w12 = kxf.expand(3, 1, 1, 12).contiguous()
+    gx = torch.autograd.grad(out, x, gy, retain_graph=True)[0]
+    lib12 = F.conv2d(gy, w12, stride=(1, 2), padding=(0, PAD_K - 1), groups=3)
+    check(max_err(lib12, gx) <= 1e-5 * gx.abs().max().item(),
+          "depthwise conv2d yardstick disagrees with the 12-tap backward")
+    b12, _ = bound((gy.numel() + x.numel()) * 4, x.numel() * 12 * 2)
+    print(f"upfirdn2d backward, ADA 12-tap x pass {tuple(gy.shape)} -> {tuple(x.shape)}: "
+          f"{cuda_ms(lambda: torch.autograd.grad(out, x, gy, retain_graph=True)):.4f} ms, "
+          f"conv2d {cuda_ms(lambda: F.conv2d(gy, w12, stride=(1, 2), padding=(0, PAD_K - 1), groups=3)):.4f} ms, "
+          f"bound {b12:.4f} ms (bytes) [{smi}]")
+    del x, out, gy, gx, lib12
+
+    # the warp pair at the largest bucket, on one batch of ADA draws at p = 1
+    win = ada_win()
+    P = ada_pads()[-1]
+    s2 = 2 * (SIZE + 2 * P)
+    coef = ada_coef(P, SEED + 1).to(dev)
+    x2 = torch.randn((16, 3, s2, s2), generator=rng, device=dev)
+    gw = torch.randn((16, 3, win, win), generator=rng, device=dev)
+    index, _ = warp_taps(coef, win, s2)
+    touched = sum(torch.unique(torch.stack([i[k] for i in index])).numel() for k in range(16))
+    idx = torch.arange(win, dtype=torch.float32, device=dev)
+    ii, jj = idx[:, None], idx[None, :]
+    c = coef[:, :, None, None]
+    qy, qx = c[:, 0] * ii + c[:, 1] * jj + c[:, 2], c[:, 3] * ii + c[:, 4] * jj + c[:, 5]
+    grid = torch.stack([2 * qx / (s2 - 1) - 1, 2 * qy / (s2 - 1) - 1], -1)
+
+    def lib_gather(x):
+        return F.grid_sample(x, grid, mode="bilinear", padding_mode="border", align_corners=True)
+
+    # grid_sample takes normalised coordinates, which round the source point
+    # by about 1e-4 pixel: agreement to 1e-3 x max|x2|
+    check(max_err(lib_gather(x2), affine_gather(x2, coef, win)) <= 1e-3 * x2.abs().max().item(),
+          "grid_sample yardstick disagrees with the warp gather")
+    xr = x2.clone().requires_grad_(True)
+    out_lib = lib_gather(xr)
+    dx2 = affine_scatter(gw, coef, s2)
+    check(max_err(torch.autograd.grad(out_lib, xr, gw, retain_graph=True)[0], dx2)
+          <= 1e-3 * dx2.abs().max().item(), "grid_sample backward disagrees with the adjoint")
+    out_bytes, coef_bytes = gw.numel() * 4, coef.numel() * 4
+    pix_ops = 16 * win * win * 12  # coordinates and weights, once per pixel
+    b, by = bound(touched * 3 * 4 + out_bytes + coef_bytes, pix_ops + gw.numel() * 9)
+    kernels.append({
+        "name": "affine_warp_gather", "route": "cuda", "source": "diagan_tpu_torch/csrc/affine_warp.cu",
+        "replaces": "diagan_tpu/ops/warp_pallas.py:239",
+        "launches": launches["affine_warp_gather"], "max_abs_err": errs["gather"],
+        "ms": cuda_ms(lambda: affine_gather(x2, coef, win)),
+        "plain_ms": cuda_ms(lambda: affine_gather_plain(x2, coef, win)),
+        "bound_ms": b, "bound_by": by, "library_ms": cuda_ms(lambda: lib_gather(x2)),
+        "shape": f"{tuple(x2.shape)} -> {tuple(gw.shape)} fp32, ADA draws at p=1 "
+                 f"({touched} source pixels touched)",
+    })
+    b, by = bound(out_bytes + x2.numel() * 4 + coef_bytes, pix_ops + gw.numel() * 8)
+    kernels.append({
+        "name": "affine_warp_scatter", "route": "cuda", "source": "diagan_tpu_torch/csrc/affine_warp.cu",
+        "replaces": "diagan_tpu/ops/warp_pallas.py:397",
+        "launches": launches["affine_warp_scatter"], "max_abs_err": errs["scatter"],
+        "ms": cuda_ms(lambda: affine_scatter(gw, coef, s2)),
+        "plain_ms": cuda_ms(lambda: affine_scatter_plain(gw, coef, s2)),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(out_lib, xr, gw, retain_graph=True)),
+        "shape": f"{tuple(gw.shape)} -> {tuple(x2.shape)} fp32, ADA draws at p=1",
+    })
+    for k in kernels:
+        print(f"{k['name']} at {k['shape']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
+              f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms ({k['bound_by']}) "
+              f"[{smi}]")
+    return kernels
+
+
+def time_training(tr, smi):
+    """ms per training step (host clock around synchronised steps) for the
+    three kinds of step, then a profile of one ADA-live plain step."""
+    def step_ms(step, reps=3):
+        tr.train_step(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            tr.train_step(step)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    plain, path, both = step_ms(1), step_ms(4), step_ms(16)
+    print(f"training StyleGAN2-{SIZE} batch 16 fp32, ADA p={tr.ada_aug_p}: plain step "
+          f"{plain:.2f} ms, path-regularisation step {path:.2f} ms, R1 + path step "
+          f"{both:.2f} ms (R1 about {both - path:.2f} ms); at the default cadence "
+          f"(R1 every 16, path every 4) {(12 * plain + 3 * path + both) / 16:.2f} ms/step "
+          f"[{smi}]")
+    profile(lambda: tr.train_step(1), f"one ADA-live plain training step (batch 16, {SIZE} px)",
+            smi, ("upfirdn2d_kernel", "flr_fwd", "flr_bwd", "flr_db", "gather_kernel",
+                  "scatter_kernel"))
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="stop after phase 3b (build and check the kernels)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a card",
               file=sys.stderr)
@@ -122,6 +683,7 @@ def main():
     from diagan_tpu_torch.ops import (
         _build,
         fused_leaky_relu,
+        fused_leaky_relu_backward,
         fused_leaky_relu_plain,
         make_resample_kernel,
         upfirdn2d,
@@ -151,9 +713,11 @@ def main():
         print(f"nvcc {name}: {'; '.join(regs) or 'up to date'}")
     t0 = time.perf_counter()
     fused_leaky_relu(torch.zeros(1, 1, device=dev), torch.zeros(1, device=dev))
+    fused_leaky_relu_backward(torch.zeros(1, 1, device=dev), torch.zeros(1, 1, device=dev))
     torch.cuda.synchronize()
     t_triton = time.perf_counter() - t0
-    print(f"build: nvcc {t_nvcc:.2f} s, triton first launch {t_triton:.2f} s")
+    print(f"build: nvcc {t_nvcc:.2f} s, triton first launches (forward, backward) "
+          f"{t_triton:.2f} s")
 
     # 3. kernels against their plain versions
     ch = _channels(SIZE, CH_MULT)
@@ -220,6 +784,15 @@ def main():
     print(f"fused_leaky_relu: {len(flr_shapes)} shapes x (fp32, bf16) match plain; "
           f"max abs err fp32 {err_b:.3e} (tol 1e-6 x max(1, max|out|); bf16 1 ulp)")
 
+    # 3b. the training path's kernels against their plain versions
+    rng_b = torch.Generator(dev).manual_seed(SEED + 10)
+    errs = {"flr_bwd": check_act_backward(dev, rng_b, ch),
+            "fir_bwd": check_fir_backward(dev, rng_b, ch, k4)}
+    errs["gather"], errs["scatter"] = check_warp(dev, rng_b)
+    if args.kernels_only:
+        print(smi)
+        return 0
+
     # 4. the serving slice at full width
     work = ROOT / "diagan_tpu_torch" / "build" / "chip_smoke"
     samples = ROOT / "chiprun_out" / "chip_smoke_samples"
@@ -247,7 +820,7 @@ def main():
     launches_gen = dict(_build.LAUNCHES)
     check(imgs.shape == (32, SIZE, SIZE, 3), f"generate shape {imgs.shape}")
     check(bool(np.isfinite(imgs).all()), "generate produced non-finite values")
-    check(all(v > 0 for v in launches_gen.values()), f"generate launches {launches_gen}")
+    check(all(launches_gen[k] > 0 for k in FORWARD_KERNELS), f"generate launches {launches_gen}")
     check(len(list(samples.glob("*.png"))) == 2, "generate wrote no grids")
     print(f"cli.generate: 2 grids of 16, {t_gen:.2f} s, launches {launches_gen}")
 
@@ -268,7 +841,7 @@ def main():
     launches_drs = dict(_build.LAUNCHES)
     check(accepted.shape == (128, SIZE, SIZE, 3), f"DRS shape {accepted.shape}")
     check(bool(np.isfinite(accepted).all()), "DRS produced non-finite values")
-    check(all(v > 0 for v in launches_drs.values()), f"DRS launches {launches_drs}")
+    check(all(launches_drs[k] > 0 for k in FORWARD_KERNELS), f"DRS launches {launches_drs}")
     acc_rate = drs.accepted / drs.proposed
     check(0.0 < acc_rate < 1.0, f"DRS acceptance {acc_rate}")
     print(f"DRS: warm-up 4 x 32 in {t_warm:.2f} s; 128 accepted of {drs.proposed} proposed "
@@ -364,7 +937,23 @@ def main():
           f"[{smi}]")
     print(f"DRS batch 32: {128 / t_drs:.2f} accepted samples/s, acceptance {acc_rate:.4f} "
           f"[{smi}]")
-    profile_proposal(gen_fn, disc_fn, z32, smi)
+    profile(lambda: disc_fn(gen_fn(z32)), f"one proposal batch ({z32.shape[0]} images, G + D)",
+            smi, ("upfirdn2d_kernel", "flr_fwd"))
+
+    # 6. the training path at full width, through its CLIs
+    tr1, launches_train = train_path(dev, smi, work / "train")
+    # 6b. one training step's gradients, card against CPU
+    grads_card_vs_cpu(dev, work / "grads")
+
+    # 7. timings of the training path
+    total = {k: launches_gen[k] + launches_drs[k] + sum(run[k] for run in launches_train.values())
+             for k in launches_gen}
+    for k in kernels:
+        k["launches"] = total[k["name"]]
+    kernels += time_new_kernels(dev, rng_b, ch, k4, smi, total, errs)
+    time_training(tr1, smi)
+    print(f"launches on the main paths: serving {launches_gen} + {launches_drs}; "
+          f"training {launches_train}")
 
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": kernels}))

@@ -6,8 +6,8 @@ noise from one fixed key; here the noise comes from an explicit
 torch.Generator on the generator's device.
 
 The port's checkpoint is one torch.save'd dict of state_dicts,
-{"g_ema", "d", "drs_d"}; DRS reads drs_d and falls back to d, as the JAX
-reader does.
+{"g_ema", "d", "drs_d"}; the trainer's checkpoints are a superset of it.
+DRS reads drs_d and falls back to d, as the JAX reader does.
 """
 from __future__ import annotations
 

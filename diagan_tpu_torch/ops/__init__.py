@@ -1,10 +1,28 @@
-"""Kernels of the port: upfirdn2d (CUDA C++) and fused bias-LeakyReLU (Triton),
-each with its plain-torch version, which CPU tensors take."""
-from diagan_tpu_torch.ops.fused_act import fused_leaky_relu, fused_leaky_relu_plain
+"""Kernels of the port, each with its plain-torch version, which CPU tensors
+take: upfirdn2d and its backward (CUDA C++), fused bias-LeakyReLU and its
+backward (Triton), and ADA's affine warp and its adjoint (CUDA C++)."""
+from diagan_tpu_torch.ops.fused_act import (
+    fused_leaky_relu,
+    fused_leaky_relu_backward,
+    fused_leaky_relu_backward_plain,
+    fused_leaky_relu_plain,
+)
 from diagan_tpu_torch.ops.upfirdn2d import make_resample_kernel, upfirdn2d, upfirdn2d_plain
+from diagan_tpu_torch.ops.warp import (
+    affine_gather,
+    affine_gather_plain,
+    affine_scatter,
+    affine_scatter_plain,
+)
 
 __all__ = [
+    "affine_gather",
+    "affine_gather_plain",
+    "affine_scatter",
+    "affine_scatter_plain",
     "fused_leaky_relu",
+    "fused_leaky_relu_backward",
+    "fused_leaky_relu_backward_plain",
     "fused_leaky_relu_plain",
     "make_resample_kernel",
     "upfirdn2d",

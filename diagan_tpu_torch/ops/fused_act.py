@@ -1,14 +1,25 @@
-"""Fused bias-add + LeakyReLU (+ sqrt(2) gain).
+"""Fused bias-add + LeakyReLU (+ sqrt(2) gain), and its backward.
 
-    y = scale * leaky_relu(x + bias, negative_slope)
+    y  = scale * leaky_relu(x + bias, negative_slope)
+    dx = scale * g * (1 if y > 0 else negative_slope)      (mode 31: mask from
+    db = sum of dx over every axis but the channel           the saved output)
 
 with `bias` broadcast over the channel axis: dim 1 of an (N, C, H, W) map or
-of an (N, C) matrix (mapping network and discriminator head). Same forward as
-the JAX package's fused_leaky_relu (the reference's fused_bias_act, act=3).
+of an (N, C) matrix (mapping network and discriminator head). Same forward
+and backward as the JAX package's fused_leaky_relu and its custom VJP (the
+reference's fused_bias_act, act=3, and FusedLeakyReLUFunctionBackward).
 
-`fused_leaky_relu` launches the Triton kernel for a CUDA tensor and runs
-`fused_leaky_relu_plain` for a CPU tensor, and does nothing else. The kernel
-has no backward yet: autograd through it on the card raises.
+Three functions touch a kernel, and each launches its kernel for a CUDA
+tensor and runs its plain-torch version for a CPU tensor, and does nothing
+else:
+  - the forward: the Triton forward kernel (`flr_fwd`);
+  - `fused_leaky_relu_backward`: the Triton backward kernels (`flr_bwd`
+    writes dx and one partial channel sum per program, `flr_db` adds the
+    partials in a fixed order);
+  - the double backward, which runs `flr_bwd` again without the sums.
+`fused_leaky_relu` is the differentiable entry point built from them: its
+backward is another autograd.Function whose own backward gives the second
+derivative that R1 and path regularisation take.
 """
 from __future__ import annotations
 
@@ -20,6 +31,7 @@ import torch
 _SLOPE = 0.2
 _SCALE = math.sqrt(2.0)
 _BLOCK = 1024
+_PROGRAMS = 2048  # backward: aim for this many (channel, split) programs
 
 
 def _bias_view(x, bias):
@@ -27,16 +39,30 @@ def _bias_view(x, bias):
 
 
 def fused_leaky_relu_plain(x, bias, negative_slope=_SLOPE, scale=_SCALE):
-    """Plain-torch version: fp32 math, one rounding to x's dtype at the end."""
+    """Plain-torch forward: fp32 math, one rounding to x's dtype at the end."""
     y = x.float() + _bias_view(x, bias).float()
     return (torch.where(y > 0, y, y * negative_slope) * scale).to(x.dtype)
 
 
+def fused_leaky_relu_backward_plain(g, y, negative_slope=_SLOPE, scale=_SCALE, extra=None,
+                                    sums=True):
+    """Plain-torch backward: (dx, db) with dx in g's dtype and db the fp32 sum
+    of the rounded dx over all axes but dim 1 (None when sums=False). `extra`
+    (C,), when given, is added to g per channel before the mask (the double
+    backward's gg_db)."""
+    h = g.float()
+    if extra is not None:
+        h = h + _bias_view(g, extra).float()
+    dx = (torch.where(y > 0, h, h * negative_slope) * scale).to(g.dtype)
+    dims = (0,) + tuple(range(2, g.ndim))
+    return dx, dx.float().sum(dims) if sums else None
+
+
 @functools.cache
-def _kernel():
-    """Compile-on-demand Triton kernel. triton is imported here, at the first
-    launch, because machines without a card have no triton; the names are
-    bound as module globals so the jitted body resolves them."""
+def _kernels():
+    """Compile-on-demand Triton kernels. triton is imported here, at the
+    first launch, because machines without a card have no triton; the names
+    are bound as module globals so the jitted bodies resolve them."""
     global triton, tl
     import triton
     import triton.language as tl
@@ -57,21 +83,70 @@ def _kernel():
         v = tl.where(v > 0, v, v * slope) * scale
         tl.store(y_ptr + offs, v.to(y_ptr.dtype.element_ty), mask=mask)
 
-    return flr_fwd
+    @triton.jit
+    def flr_bwd(g_ptr, y_ptr, e_ptr, dx_ptr, part_ptr, per_ch, inner, channels,
+                splits, slope, scale, HAS_EXTRA: tl.constexpr, SUMS: tl.constexpr,
+                BLOCK: tl.constexpr):
+        # Replaces diagan_tpu/ops/fused_act.py:_pallas_backward and the db sum
+        # the JAX package does outside it (:114). Bound: bytes (g and y read
+        # once, dx written once). A fused elementwise pass plus a per-channel
+        # reduction: the case Triton serves as well as CUDA C++. Program
+        # (c, s) walks channel c's N * inner elements, split s of `splits`,
+        # in BLOCK-wide contiguous runs (coalesced within each (n, c) plane);
+        # it writes dx and, with SUMS, one partial sum of the rounded dx.
+        # The partials are added by flr_db in a fixed order, so db is the
+        # same on every run (float atomics would not be).
+        c = tl.program_id(0)
+        s = tl.program_id(1)
+        acc = tl.zeros([BLOCK], dtype=tl.float32)
+        if HAS_EXTRA:
+            e = tl.load(e_ptr + c).to(tl.float32)
+        for start in range(s * BLOCK, per_ch, splits * BLOCK):
+            r = start + tl.arange(0, BLOCK)
+            mask = r < per_ch
+            n = r // inner
+            offs = (n.to(tl.int64) * channels + c) * inner + (r - n * inner)
+            g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+            if HAS_EXTRA:
+                g = g + e
+            y = tl.load(y_ptr + offs, mask=mask, other=0.0)
+            dx = (tl.where(y > 0, g, g * slope) * scale).to(dx_ptr.dtype.element_ty)
+            tl.store(dx_ptr + offs, dx, mask=mask)
+            if SUMS:
+                acc += tl.where(mask, dx.to(tl.float32), 0.0)
+        if SUMS:
+            tl.store(part_ptr + c * splits + s, tl.sum(acc, axis=0))
+
+    @triton.jit
+    def flr_db(part_ptr, db_ptr, splits, SPLITS: tl.constexpr):
+        c = tl.program_id(0)
+        i = tl.arange(0, SPLITS)
+        v = tl.load(part_ptr + c * splits + i, mask=i < splits, other=0.0)
+        tl.store(db_ptr + c, tl.sum(v, axis=0).to(db_ptr.dtype.element_ty))
+
+    return flr_fwd, flr_bwd, flr_db
 
 
-def _launch(x, bias, negative_slope, scale):
+def _check(name, t):
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, got {t.dtype}")
+    if t.ndim not in (2, 4):
+        raise ValueError(f"{name} takes (N, C) or (N, C, H, W), got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} kernel takes a contiguous tensor")
+
+
+def _check_vec(name, v, x):
+    c = x.shape[1]
+    if v.shape != (c,) or v.device != x.device or not v.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous ({c},) tensor on the input's device")
+
+
+def _launch_forward(x, bias, negative_slope, scale):
     from diagan_tpu_torch.ops import _build
 
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"fused_leaky_relu kernel takes float32 or bfloat16, got {x.dtype}")
-    if x.ndim not in (2, 4):
-        raise ValueError(f"fused_leaky_relu takes (N, C) or (N, C, H, W), got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("fused_leaky_relu kernel takes a contiguous tensor")
-    c = x.shape[1]
-    if bias.shape != (c,) or bias.device != x.device or not bias.is_contiguous():
-        raise ValueError(f"bias must be a contiguous ({c},) tensor on x's device")
+    _check("fused_leaky_relu", x)
+    _check_vec("bias", bias, x)
     y = torch.empty_like(x)
     numel = x.numel()
     if numel == 0:
@@ -79,28 +154,106 @@ def _launch(x, bias, negative_slope, scale):
     inner = 1 if x.ndim == 2 else x.shape[2] * x.shape[3]
     grid = (-(-numel // _BLOCK),)
     with torch.cuda.device(x.device):
-        _kernel()[grid](x, bias, y, numel, inner, c, float(negative_slope),
-                        float(scale), BLOCK=_BLOCK, num_warps=4)
+        _kernels()[0][grid](x, bias, y, numel, inner, x.shape[1], float(negative_slope),
+                            float(scale), BLOCK=_BLOCK, num_warps=4)
     _build.LAUNCHES["fused_leaky_relu"] += 1
     return y
 
 
-class _FusedLeakyReLUCUDA(torch.autograd.Function):
+def _launch_backward(g, y, negative_slope, scale, extra, sums):
+    from diagan_tpu_torch.ops import _build
+
+    _check("fused_leaky_relu_backward", g)
+    if y.shape != g.shape or y.dtype != g.dtype or y.device != g.device or not y.is_contiguous():
+        raise ValueError("y must be a contiguous tensor of g's shape, dtype and device")
+    if extra is not None:
+        _check_vec("extra", extra, g)
+    c = g.shape[1]
+    inner = 1 if g.ndim == 2 else g.shape[2] * g.shape[3]
+    per_ch = g.shape[0] * inner
+    dx = torch.empty_like(g)
+    db = torch.empty(c, dtype=torch.float32, device=g.device) if sums else None
+    if per_ch == 0 or c == 0:
+        return dx, db
+    block = _BLOCK if per_ch >= _BLOCK else max(32, 1 << (per_ch - 1).bit_length())
+    splits = max(1, min(-(-per_ch // block), -(-_PROGRAMS // c)))
+    part = torch.empty((c, splits), dtype=torch.float32, device=g.device)
+    _, flr_bwd, flr_db = _kernels()
+    with torch.cuda.device(g.device):
+        flr_bwd[(c, splits)](g, y, extra if extra is not None else g, dx, part, per_ch, inner,
+                             c, splits, float(negative_slope), float(scale),
+                             HAS_EXTRA=extra is not None, SUMS=sums, BLOCK=block, num_warps=4)
+        if sums:
+            flr_db[(c,)](part, db, splits, SPLITS=max(2, 1 << (splits - 1).bit_length()),
+                         num_warps=1)
+    _build.LAUNCHES["fused_leaky_relu_backward"] += 1
+    return dx, db
+
+
+def _on(t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_leaky_relu runs on cpu or cuda tensors, got {t.device}")
+    return t.device.type == "cuda"
+
+
+def _forward(x, bias, negative_slope, scale):
+    """The forward alone (no autograd): the kernel on CUDA, the plain version on CPU."""
+    if _on(x):
+        return _launch_forward(x, bias, negative_slope, scale)
+    return fused_leaky_relu_plain(x, bias, negative_slope, scale)
+
+
+def fused_leaky_relu_backward(g, y, negative_slope=_SLOPE, scale=_SCALE, extra=None,
+                              sums=True):
+    """(dx, db) from the upstream gradient g and the saved output y (no
+    autograd): the kernels on CUDA, the plain version on CPU. db is fp32, or
+    None when sums=False, which skips the reduction."""
+    if _on(g):
+        return _launch_backward(g.contiguous(), y, negative_slope, scale, extra, sums)
+    return fused_leaky_relu_backward_plain(g, y, negative_slope, scale, extra, sums)
+
+
+class _FusedLeakyReLU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, bias, negative_slope, scale):
-        return _launch(x, bias, negative_slope, scale)
+        y = _forward(x, bias, negative_slope, scale)
+        ctx.save_for_backward(y)
+        ctx.args = (negative_slope, scale, bias.dtype)
+        return y
 
     @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError(
-            "fused_leaky_relu has no backward kernel on CUDA yet (it comes "
-            "with the training slice); run sampling under torch.no_grad()")
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        slope, scale, bias_dtype = ctx.args
+        dx, db = _FusedLeakyReLUBackward.apply(g, y, slope, scale)
+        return dx, db.to(bias_dtype), None, None
+
+
+class _FusedLeakyReLUBackward(torch.autograd.Function):
+    """(g, y) -> (dx, db), differentiable once more in g: the grad of g is
+    the same mask applied to gg_dx + gg_db (broadcast over N, H, W), times
+    the scale; the grad of y is zero (the mask is a step in y)."""
+
+    @staticmethod
+    def forward(ctx, g, y, negative_slope, scale):
+        dx, db = fused_leaky_relu_backward(g, y, negative_slope, scale)
+        ctx.save_for_backward(y)
+        ctx.args = (negative_slope, scale)
+        return dx, db
+
+    @staticmethod
+    def backward(ctx, gg_dx, gg_db):
+        (y,) = ctx.saved_tensors
+        slope, scale = ctx.args
+        if gg_dx is None:
+            gg_dx = torch.zeros_like(y)
+        extra = None if gg_db is None else gg_db.to(torch.float32).contiguous()
+        dg, _ = fused_leaky_relu_backward(gg_dx, y, slope, scale, extra=extra, sums=False)
+        return dg, None, None, None
 
 
 def fused_leaky_relu(x, bias, negative_slope=_SLOPE, scale=_SCALE):
-    """y = scale * leaky_relu(x + bias) with bias over dim 1 of (N, C[, H, W])."""
-    if x.device.type == "cpu":
-        return fused_leaky_relu_plain(x, bias, negative_slope, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_leaky_relu runs on cpu or cuda tensors, got {x.device}")
-    return _FusedLeakyReLUCUDA.apply(x, bias, negative_slope, scale)
+    """y = scale * leaky_relu(x + bias) with bias over dim 1 of (N, C[, H, W]);
+    differentiable twice (kernels on CUDA, plain versions on CPU)."""
+    _on(x)
+    return _FusedLeakyReLU.apply(x, bias, negative_slope, scale)

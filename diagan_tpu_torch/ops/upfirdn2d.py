@@ -11,8 +11,13 @@ reference's `upfirdn2d_native`):
   out = (in * up + pad0 + pad1 - k) // down + 1   per spatial axis.
 
 `upfirdn2d` launches the CUDA kernel (csrc/upfirdn2d.cu) for a CUDA tensor and
-runs `upfirdn2d_plain` for a CPU tensor, and does nothing else. The kernel has
-no backward yet: autograd through it on the card raises.
+runs `upfirdn2d_plain` for a CPU tensor, and does nothing else. Its backward
+is the same op again (the JAX package's g_pad VJP, fir_pallas.py:379-399):
+flipped taps, up and down swapped, pads chosen so the result has the input's
+size. Because that backward is the same differentiable Function, the second
+derivative (R1, path regularisation) follows without more code. Launches made
+from a backward count under "upfirdn2d_backward", the others under
+"upfirdn2d".
 """
 from __future__ import annotations
 
@@ -105,7 +110,7 @@ def _forward_fn():
     return fn
 
 
-def _launch(x, taps, up, down, pad):
+def _launch(x, taps, up, down, pad, counter):
     from diagan_tpu_torch.ops import _build
 
     (up_x, up_y), (down_x, down_y), (p_x0, p_x1, p_y0, p_y1) = _parse(up, down, pad)
@@ -136,20 +141,41 @@ def _launch(x, taps, up, down, pad):
                             kh, kw, up_x, up_y, down_x, down_y, p_x0, p_y0, stream)
     if err != 0:
         raise RuntimeError(f"upfirdn2d kernel launch failed: cudaError {err}")
-    _build.LAUNCHES["upfirdn2d"] += 1
+    _build.LAUNCHES[counter] += 1
     return y
 
 
-class _Upfirdn2dCUDA(torch.autograd.Function):
+def _backward_args(in_hw, out_hw, kh, kw, up, down, pad):
+    """(up, down, pad) of the op that maps the output's gradient back to the
+    input's: up and down swap, pads (x0, x1, y0, y1) as in fir_pallas.py:388-391."""
+    (up_x, up_y), (down_x, down_y), (p_x0, p_x1, p_y0, p_y1) = _parse(up, down, pad)
+    (in_h, in_w), (out_h, out_w) = in_hw, out_hw
+    g_pad = (kw - p_x0 - 1, in_w * up_x - out_w * down_x + p_x0 - up_x + 1,
+             kh - p_y0 - 1, in_h * up_y - out_h * down_y + p_y0 - up_y + 1)
+    return (down_x, down_y), (up_x, up_y), g_pad
+
+
+class _Upfirdn2d(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, taps, up, down, pad):
-        return _launch(x, taps, up, down, pad)
+    def forward(ctx, x, taps, up, down, pad, counter):
+        if x.device.type == "cpu":
+            y = upfirdn2d_plain(x, taps, up, down, pad)
+        else:
+            y = _launch(x, taps, up, down, pad, counter)
+        ctx.save_for_backward(taps)
+        ctx.args = (tuple(x.shape[2:]), tuple(y.shape[2:]), up, down, pad)
+        return y
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "upfirdn2d has no backward kernel on CUDA yet (it comes with the "
-            "training slice); run sampling under torch.no_grad()")
+        (taps,) = ctx.saved_tensors
+        in_hw, out_hw, up, down, pad = ctx.args
+        kh, kw = taps.shape
+        g_up, g_down, g_pad = _backward_args(in_hw, out_hw, kh, kw, up, down, pad)
+        flipped = torch.flip(taps, (0, 1)).contiguous()
+        dx = _Upfirdn2d.apply(grad.contiguous(), flipped, g_up, g_down, g_pad,
+                              "upfirdn2d_backward")
+        return dx, None, None, None, None, None
 
 
 def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
@@ -163,9 +189,8 @@ def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
 
     Returns (N, C, H', W') with H' = (H*up + pad0 + pad1 - kh)//down + 1.
     """
-    if x.device.type == "cpu":
-        return upfirdn2d_plain(x, kernel, up, down, pad)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"upfirdn2d runs on cpu or cuda tensors, got {x.device}")
+    _parse(up, down, pad)
     taps = _taps(kernel, x.device).contiguous()
-    return _Upfirdn2dCUDA.apply(x, taps, up, down, pad)
+    return _Upfirdn2d.apply(x, taps, up, down, pad, "upfirdn2d")

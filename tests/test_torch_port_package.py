@@ -15,13 +15,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from diagan_tpu_torch import resolve_device  # noqa: E402
-from diagan_tpu_torch.cli import generate  # noqa: E402
+from diagan_tpu_torch.cli import generate, train_ffhq, train_ffhq_phase2  # noqa: E402
 from diagan_tpu_torch.eval.drs import DRS  # noqa: E402
 from diagan_tpu_torch.eval.evaluate import Sampler  # noqa: E402
 from diagan_tpu_torch.models.stylegan2 import (  # noqa: E402
     StyleGAN2Discriminator,
     StyleGAN2Generator,
 )
+from diagan_tpu_torch.train.stylegan2_trainer import StyleGAN2Trainer  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(jax|flax|optax|diagan_tpu)(?:\.|\s|$)",
@@ -76,7 +77,12 @@ def _no_card(monkeypatch):
     lambda: DRS(lambda z: z, lambda x: x, 8, warmup_batches=0),
     lambda: Sampler(lambda z: z, 8),
     lambda: generate.main(["--size", "16", "--ckpt", "unused.pt"]),
-], ids=["resolve_device", "generator", "discriminator", "drs", "sampler", "generate_cli"])
+    lambda: train_ffhq.main(["--size", "16", "--work_dir", "unused"]),
+    lambda: train_ffhq_phase2.main(["--size", "16", "--work_dir", "unused",
+                                    "--resample_score", "ldr"]),
+    lambda: StyleGAN2Trainer("unused", None, None, None, 1),
+], ids=["resolve_device", "generator", "discriminator", "drs", "sampler", "generate_cli",
+        "train_ffhq_cli", "train_ffhq_phase2_cli", "trainer"])
 def test_entry_points_without_device_raise_when_no_card(monkeypatch, entry):
     _no_card(monkeypatch)
     with pytest.raises(RuntimeError, match="device='cpu'"):
