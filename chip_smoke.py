@@ -15,7 +15,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      backward (dx, db, double backward) at every activation shape, fp32 and
      bf16; the upfirdn2d backward and double backward at every G/D blur and
      every ADA 12-tap pass at each pad bucket; ADA's warp gather and its
-     adjoint at each bucket's S2, six geometries and one batch of ADA draws
+     adjoint at each bucket's S2, six geometries and one batch of ADA draws;
+  3c. the polyphase ADA kernels against their plain versions: the two-phase
+     warp gather and its adjoint at each bucket's S2, the same geometries and
+     draws; then the whole polyphase resample at 256 px, batch 16, against
+     the interleaved one at the same reflect pad, values and image gradient
      (--kernels-only stops here);
   4. the serving slice at full width (StyleGAN2-256, channel_multiplier 2,
      style_dim 512, n_mlp 8, random weights from a seed): save a checkpoint,
@@ -31,11 +35,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      logit sweeps; cli.train_ffhq_phase2 for 4 steps from that checkpoint with
      the LDR scores and the twin DRS discriminator; cli.generate and DRS on
      the phase-2 checkpoint; every kernel launched on each training path;
+     then cli.train_ffhq for 4 steps with DIAGAN_TPU_ADA_POLYPHASE=1, which
+     must launch the two-phase warp pair and neither interleaved warp kernel;
   6b. one training step's gradients (D loss, R1, G through ADA, path
-     length), card against CPU at 32 px, width 1/4, with injected draws;
+     length), and the polyphase augment and its image gradient, card against
+     CPU at 32 px, width 1/4, with injected draws;
   7. the training kernels at their largest path shapes (kernel, plain,
      library, bound), ms per plain / path / R1 step, peak device memory and a
-     profile of one ADA-live step.
+     profile of one ADA-live step; then the two-phase warp pair, one augment
+     call (forward, forward + backward) polyphase against interleaved at the
+     same pad, each FIR pass of both forms on kernel A against a cuDNN
+     depthwise convolution, the plain step polyphase / interleaved at the
+     static pad / interleaved with the trainer's pad buckets, and a profile
+     of one polyphase ADA-live step.
 The last lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a card it exits 2 and prints no result.
 """
@@ -44,11 +56,13 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -131,6 +145,8 @@ def profile(fn, label, smi, tags):
         print(f"  {tag}: {ms:.3f} ms, {100 * ms / total:.2f}% of summed kernel time")
 
 FORWARD_KERNELS = ("upfirdn2d", "fused_leaky_relu")  # what sampling launches
+WARP = ("affine_warp_gather", "affine_warp_scatter")  # ADA's interleaved resample
+WARP2 = ("affine_warp2_gather", "affine_warp2_scatter")  # its polyphase form
 N_DATA = 512  # synthetic training images
 # tests/test_warp_pallas.py geometries, [ay, by, cy, ax, bx, cx] at s2 = 128;
 # the offsets cy, cx scale with s2
@@ -161,6 +177,16 @@ def ada_win():
     from diagan_tpu_torch.models.ada import PAD_K
 
     return 2 * SIZE + 2 * PAD_K
+
+
+def ada_s2(P):
+    """Edge of the 2x buffer at reflect pad P."""
+    return 2 * (SIZE + 2 * P)
+
+
+def polyphase_env():
+    """DIAGAN_TPU_ADA_POLYPHASE=1 (the polyphase opt-in) inside the block."""
+    return mock.patch.dict(os.environ, {"DIAGAN_TPU_ADA_POLYPHASE": "1"})
 
 
 def ada_coef(P, seed):
@@ -288,6 +314,16 @@ def check_fir_backward(dev, rng, ch, k4):
     return err
 
 
+def warp_coefs(P, dev):
+    """Warp coefficients (16, 6) at reflect pad P: the six WARP_CASES, their
+    offsets scaled to the bucket's S2, and one batch of ADA draws at p = 1."""
+    f = ada_s2(P) / 128
+    coefs = {name: torch.tensor([ay, by, cy * f, ax, bx, cx * f], device=dev).expand(16, 6)
+             for name, (ay, by, cy, ax, bx, cx) in WARP_CASES.items()}
+    coefs["ada_p1"] = ada_coef(P, SEED).to(dev)
+    return {name: coef.contiguous() for name, coef in coefs.items()}
+
+
 def check_warp(dev, rng):
     """The warp gather and its adjoint against the plain versions at each
     ADA bucket's S2 and win: six geometries and one batch of ADA draws."""
@@ -302,15 +338,10 @@ def check_warp(dev, rng):
     err_g = err_s = 0.0
     exact = True
     for P in ada_pads():
-        s2 = 2 * (SIZE + 2 * P)
+        s2 = ada_s2(P)
         x2 = torch.randn((16, 3, s2, s2), generator=rng, device=dev)
         g = torch.randn((16, 3, win, win), generator=rng, device=dev)
-        f = s2 / 128
-        coefs = {name: torch.tensor([ay, by, cy * f, ax, bx, cx * f], device=dev).expand(16, 6)
-                 for name, (ay, by, cy, ax, bx, cx) in WARP_CASES.items()}
-        coefs["ada_p1"] = ada_coef(P, SEED).to(dev)
-        for name, coef in coefs.items():
-            coef = coef.contiguous()
+        for name, coef in warp_coefs(P, dev).items():
             out, dx2 = affine_gather(x2, coef, win), affine_scatter(g, coef, s2)
             torch.cuda.synchronize()
             want, want_dx2 = affine_gather_plain(x2, coef, win), affine_scatter_plain(g, coef, s2)
@@ -325,11 +356,84 @@ def check_warp(dev, rng):
                   f"affine scatter {name} s2={s2}: err {diff.max().item()}")
             err_g, err_s = max(err_g, e), max(err_s, diff.max().item())
         del x2, g
-    print(f"affine warp: S2 {[2 * (SIZE + 2 * P) for P in ada_pads()]}, win {win}, "
+    print(f"affine warp: S2 {[ada_s2(P) for P in ada_pads()]}, win {win}, "
           f"{len(WARP_CASES)} geometries + ADA draws at p=1: gather max abs err {err_g:.3e} "
           f"({'bit-exact' if exact else 'not bit-exact'}; tol 1e-6 x max|out|), adjoint "
           f"{err_s:.3e} (tol 2e-5, clipped 2e-4, + 1e-4 x |want|)")
     return err_g, err_s
+
+
+def check_warp2(dev, rng):
+    """The two-phase warp gather and its adjoint against the plain versions
+    at each ADA bucket's S2 and win, on the geometries of check_warp."""
+    from diagan_tpu_torch.ops import (
+        affine_gather2_plain,
+        affine_gather_2phase,
+        affine_scatter2,
+        affine_scatter2_plain,
+    )
+
+    win = ada_win()
+    err_g = err_s = 0.0
+    exact = True
+    for P in ada_pads():
+        s2 = ada_s2(P)
+        v0, v1 = (torch.randn((16, 3, s2 // 2, s2), generator=rng, device=dev) for _ in range(2))
+        g = torch.randn((4, 16, 3, win // 2, win // 2), generator=rng, device=dev)
+        for name, coef in warp_coefs(P, dev).items():
+            out = affine_gather_2phase(v0, v1, coef, win, s2)
+            dv = affine_scatter2(g, coef, s2)
+            torch.cuda.synchronize()
+            check(all(y.shape == (16, 3, win // 2, win // 2) and y.is_contiguous() for y in out),
+                  f"affine gather2 {name} s2={s2}: quarter grids {[tuple(y.shape) for y in out]}")
+            want, want_dv = affine_gather2_plain(v0, v1, coef, win), affine_scatter2_plain(g, coef, s2)
+            e = max(max_err(a, b) for a, b in zip(out, want))
+            exact = exact and e == 0.0
+            scale = max(b.abs().max().item() for b in want)
+            check(e <= 1e-6 * scale, f"affine gather2 {name} s2={s2}: err {e}")
+            # as check_warp: atomics in a run-dependent order
+            atol = 2e-4 if name == "clipped" else 2e-5
+            for got, w in zip(dv, want_dv):
+                diff = (got - w).abs()
+                check(bool((diff <= atol + 1e-4 * w.abs()).all()),
+                      f"affine scatter2 {name} s2={s2}: err {diff.max().item()}")
+                err_s = max(err_s, diff.max().item())
+            err_g = max(err_g, e)
+            del out, dv, want, want_dv
+        del v0, v1, g
+    print(f"two-phase affine warp: S2 {[ada_s2(P) for P in ada_pads()]}, win {win}, "
+          f"{len(WARP_CASES)} geometries + ADA draws at p=1: gather2 max abs err {err_g:.3e} "
+          f"({'bit-exact' if exact else 'not bit-exact'}; tol 1e-6 x max|out|), adjoint "
+          f"{err_s:.3e} (tol 2e-5, clipped 2e-4, + 1e-4 x |want|)")
+    return err_g, err_s
+
+
+def check_polyphase_resample(dev, rng):
+    """The whole polyphase resample (apply_affine, polyphase=True) against
+    the interleaved one at the same static reflect pad, at SIZE px, batch 16,
+    ADA draws at p = 0.9: values and d(loss)/d(images), at the JAX
+    package's tolerance for the two forms (tests/test_ada_phase.py:103)."""
+    from diagan_tpu_torch.models import ada
+
+    G = ada.sample_affine_matrices(16, 0.9, SIZE, SIZE, torch.Generator().manual_seed(SEED + 3))
+    x = torch.randn((16, SIZE, SIZE, 3), generator=rng, device=dev).tanh().requires_grad_(True)
+    w = torch.randn(x.shape, generator=rng, device=dev)
+    res = []
+    for poly in (True, False):
+        out = ada.apply_affine(x, G, polyphase=poly)
+        (gx,) = torch.autograd.grad((out * w).sum(), x)
+        res.append((out.detach(), gx))
+    torch.cuda.synchronize()
+    errs = []
+    for what, got, want in zip(("values", "image gradient"), *res):
+        diff = (got - want).abs()
+        check(bool((diff <= 2e-5 + 2e-4 * want.abs()).all()),
+              f"polyphase resample {what} differ from interleaved by {diff.max().item()}")
+        errs.append(diff.max().item())
+    P = min(SIZE - 1, int(0.75 * SIZE) + ada.PAD_K)
+    print(f"polyphase resample at {SIZE} px, batch 16, ADA draws at p=0.9, P={P}: against the "
+          f"interleaved form, values max abs err {errs[0]:.3e}, image gradient {errs[1]:.3e} "
+          f"(tol 2e-5 + 2e-4 x |want|)")
 
 
 def train_path(dev, smi, work):
@@ -357,13 +461,14 @@ def train_path(dev, smi, work):
               "--seed", str(SEED), "--device", dev.type]
     launches = {}
 
-    def drive(name, fn, kernels):
+    def drive(name, fn, kernels, idle=()):
         _build.reset_launches()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         launches[name] = dict(_build.LAUNCHES)
-        check(all(launches[name][k] > 0 for k in kernels), f"{name} launches {launches[name]}")
+        check(all(launches[name][k] > 0 for k in kernels) and
+              all(launches[name][k] == 0 for k in idle), f"{name} launches {launches[name]}")
         print(f"{name}: {time.perf_counter() - t0:.2f} s, launches {launches[name]}")
         return out
 
@@ -373,10 +478,11 @@ def train_path(dev, smi, work):
         check(set(keys) <= set(m), f"metrics {sorted(m)}")
         return "; ".join(f"{k} {v:.4f}" for k, v in m.items())
 
+    interleaved = tuple(k for k in _build.LAUNCHES if k not in WARP2)
     torch.cuda.reset_peak_memory_stats()
     tr1 = drive("train_ffhq (8 steps)", lambda: train_ffhq.main(
         common + ["--exp_name", "p1", "--iter", "8", "--logit_save_steps", "2",
-                  "--save_logit_after", "0"]), tuple(_build.LAUNCHES))
+                  "--save_logit_after", "0"]), interleaved, WARP2)
     peak = torch.cuda.max_memory_allocated()
     print(f"phase 1 metrics: {finite(tr1, ('d', 'g', 'r1', 'path'))}; peak device memory "
           f"{peak / 2**30:.2f} GiB [{smi}]")
@@ -391,7 +497,7 @@ def train_path(dev, smi, work):
     tr2 = drive("train_ffhq_phase2 (4 steps)", lambda: train_ffhq_phase2.main(
         common + ["--exp_name", "p2", "--baseline_exp_name", "p1", "--p1_step", "8",
                   "--resample_score", "ldr_conf_3.0_ratio_50", "--iter", "12"]),
-        tuple(_build.LAUNCHES))
+        interleaved, WARP2)
     ckpt2 = work / "p2" / "checkpoint" / "000012.pt"
     check(ckpt2.is_file() and tr2.weights is not None and tr2.drs_disc is not None,
           "phase 2 checkpoint, weights or drs_d missing")
@@ -413,6 +519,15 @@ def train_path(dev, smi, work):
               warmup_batches=2, device=dev)
     acc = drive("DRS (phase-2 checkpoint)", lambda: drs.generate_images(16), FORWARD_KERNELS)
     check(acc.shape == (16, SIZE, SIZE, 3) and np.isfinite(acc).all(), "DRS output")
+
+    # the polyphase opt-in: the two-phase warp pair, and no interleaved warp
+    with polyphase_env():
+        trp = drive("train_ffhq polyphase (4 steps)", lambda: train_ffhq.main(
+            common + ["--exp_name", "p1_poly", "--iter", "4"]),
+            tuple(k for k in _build.LAUNCHES if k not in WARP), WARP)
+    check((work / "p1_poly" / "checkpoint" / "000004.pt").is_file(),
+          "the polyphase run wrote no checkpoint")
+    print(f"polyphase phase 1 metrics: {finite(trp, ('d', 'g', 'r1', 'path'))}")
     return tr1, launches
 
 
@@ -488,6 +603,24 @@ def grads_card_vs_cpu(dev, work):
         print(f"card vs CPU, {name}: {len(want)} grads, max abs err {err:.3e} "
               f"(max|grad| {scale:.3e}; tol 1e-3 x max(1, max|grad|)); "
               f"metrics rel err {m_err:.3e}")
+
+    # the polyphase augment (resample, then colour) and its image gradient
+    from diagan_tpu_torch.models.ada import apply_affine, apply_color
+
+    G, C = aug[0]
+    w = normal(bs, size, size, 3)
+    res = []
+    for d in (torch.device("cpu"), dev):
+        x = real.to(d).requires_grad_(True)
+        out = apply_color(apply_affine(x, G, polyphase=True), C)
+        (gx,) = torch.autograd.grad((out * w.to(d)).sum(), x)
+        res.append((out.detach().cpu(), gx.cpu()))
+    for what, want, got in zip(("polyphase augment", "its image gradient"), *res):
+        scale = max(1.0, want.abs().max().item())
+        err = max_err(got, want)
+        check(err <= 1e-3 * scale, f"card vs CPU, {what}: err {err} > 1e-3 x {scale}")
+        print(f"card vs CPU, {what} ({size} px, ADA draws at p=1): max abs err {err:.3e} "
+              f"(tol 1e-3 x max(1, max|.|) = {1e-3 * scale:.3e})")
 
 
 def time_new_kernels(dev, rng, ch, k4, smi, launches, errs):
@@ -634,9 +767,186 @@ def time_new_kernels(dev, rng, ch, k4, smi, launches, errs):
     return kernels
 
 
+def ada_passes(dev, P):
+    """Every FIR pass of ADA's resample at reflect pad P, batch 16, in both
+    forms: (form, pass, input shape, taps, up, down, pad, one cuDNN
+    depthwise call that computes the same function, up to a crop)."""
+    import torch.nn.functional as F
+
+    from diagan_tpu_torch.models.ada import PAD_K, _polyphase_taps, _sym6_taps
+    from diagan_tpu_torch.ops.ada_phase import PARITIES
+
+    s, win = SIZE + 2 * P, ada_win()
+    h2 = win // 2
+    kyf, kxf, ky, kx = _sym6_taps(dev)
+    b0, b1, *down = _polyphase_taps(dev)
+
+    def dw(t):  # one filter per channel
+        return t.expand(3, 1, *t.shape).contiguous()
+
+    def flip(t):
+        return dw(torch.flip(t, (0, 1)))
+
+    x_up = ("x up-pass", kxf, (2, 1), 1, (PAD_K, PAD_K - 1, 0, 0),
+            lambda x: F.conv_transpose2d(x, dw(kxf), stride=(1, 2), padding=(0, PAD_K - 1),
+                                         groups=3))
+    passes = [
+        ("interleaved", "y up-pass", (16, 3, s, s), kyf, (1, 2), 1, (0, 0, PAD_K, PAD_K - 1),
+         lambda x: F.conv_transpose2d(x, dw(kyf), stride=(2, 1), padding=(PAD_K - 1, 0),
+                                      groups=3)),
+        ("interleaved", x_up[0], (16, 3, 2 * s, s), *x_up[1:]),
+        ("interleaved", "y down-pass", (16, 3, win, win), ky, 1, (1, 2),
+         (0, 0, PAD_K - 1, PAD_K - 1),
+         lambda x: F.conv2d(x, flip(ky), stride=(2, 1), padding=(PAD_K - 1, 0), groups=3)),
+        ("interleaved", "x down-pass", (16, 3, h2, win), kx, 1, (2, 1),
+         (PAD_K - 1, PAD_K - 1, 0, 0),
+         lambda x: F.conv2d(x, flip(kx), stride=(1, 2), padding=(0, PAD_K - 1), groups=3)),
+        ("polyphase", x_up[0], (16, 3, s, s), *x_up[1:]),
+    ]
+    for phi, b in enumerate((b0, b1)):  # pads (0, 0, 3 - phi, 2 + phi): pad 3, crop phi
+        passes.append(("polyphase", f"y phase-{phi} pass", (16, 3, s, 2 * s), b, 1, 1,
+                       (0, 0, 3 - phi, 2 + phi),
+                       lambda x, b=b, phi=phi: F.conv2d(x, flip(b), padding=(3, 0),
+                                                        groups=3)[:, :, phi:phi + s]))
+    for (a, b), k2 in zip(PARITIES, down):
+        py0, px0 = (2, 3)[a], (2, 3)[b]
+        passes.append(("polyphase", f"6x6 down-FIR Y{a}{b}", (16, 3, h2, h2), k2, 1, 1,
+                       (px0, 5 - px0, py0, 5 - py0),
+                       lambda x, k2=k2, py0=py0, px0=px0: F.conv2d(x, flip(k2), padding=3, groups=3)
+                       [:, :, 3 - py0:3 - py0 + h2, 3 - px0:3 - px0 + h2]))
+    return passes
+
+
+def time_polyphase(dev, rng, smi, launches, errs):
+    """The two-phase warp pair at the largest bucket (kernel, plain, library,
+    bound), one augment call polyphase against interleaved at the same pad,
+    and each FIR pass of both forms on kernel A against cuDNN."""
+    import torch.nn.functional as F
+
+    from diagan_tpu_torch.models import ada
+    from diagan_tpu_torch.ops import (
+        affine_gather2_plain,
+        affine_gather_2phase,
+        affine_scatter2,
+        affine_scatter2_plain,
+        upfirdn2d,
+    )
+    from diagan_tpu_torch.ops.ada_phase import PARITIES
+    from diagan_tpu_torch.ops.warp import _taps as warp_taps
+
+    kernels = []
+    win = ada_win()
+    h2, P = win // 2, ada_pads()[-1]
+    s2 = ada_s2(P)
+    coef = ada_coef(P, SEED + 1).to(dev)
+    v0, v1 = (torch.randn((16, 3, s2 // 2, s2), generator=rng, device=dev) for _ in range(2))
+    gq = torch.randn((4, 16, 3, h2, h2), generator=rng, device=dev)
+    index, _ = warp_taps(coef, win, s2)
+    touched = sum(torch.unique(torch.stack([i[k] for i in index])).numel() for k in range(16))
+    # the library yardstick reads the interleaved buffer (built here, not
+    # timed) on a grid whose rows are the four quarter grids one after another
+    x2 = torch.stack([v0, v1], 3).reshape(16, 3, s2, s2)
+    idx = torch.arange(h2, dtype=torch.float32, device=dev)
+    c = coef[:, :, None, None]
+    quarters = []
+    for a, b in PARITIES:
+        ii, jj = 2 * idx[:, None] + a, 2 * idx[None, :] + b
+        qy, qx = c[:, 0] * ii + c[:, 1] * jj + c[:, 2], c[:, 3] * ii + c[:, 4] * jj + c[:, 5]
+        quarters.append(torch.stack([2 * qx / (s2 - 1) - 1, 2 * qy / (s2 - 1) - 1], -1))
+    grid = torch.cat(quarters, 1)  # (16, 4 * h2, h2, 2)
+
+    def lib_gather(x):
+        return F.grid_sample(x, grid, mode="bilinear", padding_mode="border", align_corners=True)
+
+    def parity_major(y):  # (16, 3, 4 * h2, h2) -> (4, 16, 3, h2, h2)
+        return y.reshape(16, 3, 4, h2, h2).permute(2, 0, 1, 3, 4)
+
+    out = torch.stack(affine_gather_2phase(v0, v1, coef, win, s2))
+    check(max_err(parity_major(lib_gather(x2)), out) <= 1e-3 * x2.abs().max().item(),
+          "grid_sample yardstick disagrees with the two-phase gather")
+    xr = x2.clone().requires_grad_(True)
+    out_lib = lib_gather(xr)
+    g_lib = gq.permute(1, 2, 0, 3, 4).reshape(16, 3, 4 * h2, h2)
+    dv0, dv1 = affine_scatter2(gq, coef, s2)
+    dx2 = torch.stack([dv0, dv1], 3).reshape(16, 3, s2, s2)
+    check(max_err(torch.autograd.grad(out_lib, xr, g_lib, retain_graph=True)[0], dx2)
+          <= 1e-3 * dx2.abs().max().item(), "grid_sample backward disagrees with the adjoint2")
+    del dv0, dv1, dx2
+    out_bytes, coef_bytes = gq.numel() * 4, coef.numel() * 4
+    pix_ops = 16 * win * win * 12  # coordinates and weights, once per pixel
+    b, by = bound(touched * 3 * 4 + out_bytes + coef_bytes, pix_ops + gq.numel() * 9)
+    shape = f"2 x {tuple(v0.shape)} -> 4 x {tuple(gq.shape[1:])} fp32, ADA draws at p=1"
+    kernels.append({
+        "name": "affine_warp2_gather", "route": "cuda",
+        "source": "diagan_tpu_torch/csrc/affine_warp.cu",
+        "replaces": "diagan_tpu/ops/ada_phase.py:213",
+        "launches": launches["affine_warp2_gather"], "max_abs_err": errs["gather2"],
+        "ms": cuda_ms(lambda: affine_gather_2phase(v0, v1, coef, win, s2)),
+        "plain_ms": cuda_ms(lambda: affine_gather2_plain(v0, v1, coef, win)),
+        "bound_ms": b, "bound_by": by, "library_ms": cuda_ms(lambda: lib_gather(x2)),
+        "shape": f"{shape} ({touched} source pixels touched); library: grid_sample on the "
+                 f"interleaved buffer, its interleave not timed",
+    })
+    b, by = bound(out_bytes + 2 * v0.numel() * 4 + coef_bytes, pix_ops + gq.numel() * 8)
+    kernels.append({
+        "name": "affine_warp2_scatter", "route": "cuda",
+        "source": "diagan_tpu_torch/csrc/affine_warp.cu",
+        "replaces": "diagan_tpu/ops/ada_phase.py:327",
+        "launches": launches["affine_warp2_scatter"], "max_abs_err": errs["scatter2"],
+        "ms": cuda_ms(lambda: affine_scatter2(gq, coef, s2)),
+        "plain_ms": cuda_ms(lambda: affine_scatter2_plain(gq, coef, s2)),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(out_lib, xr, g_lib, retain_graph=True)),
+        "shape": f"4 x {tuple(gq.shape[1:])} -> 2 x {tuple(v0.shape)} fp32, ADA draws at p=1; "
+                 f"library: grid_sample backward onto the interleaved buffer",
+    })
+    for k in kernels:
+        print(f"{k['name']} at {k['shape']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
+              f"library {k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}) "
+              f"[{smi}]")
+    del v0, v1, gq, x2, xr, out_lib, g_lib, out, index
+
+    # one augment call (the resample of a batch of 16), both forms at P
+    G = ada.sample_affine_matrices(16, 0.3, SIZE, SIZE, torch.Generator().manual_seed(SEED + 4))
+    x = torch.randn((16, SIZE, SIZE, 3), generator=rng, device=dev).tanh().requires_grad_(True)
+    gout = torch.randn(x.shape, generator=rng, device=dev)
+    ms = {}
+    for poly in (True, False, False, True):  # in turns
+        fwd = cuda_ms(lambda: ada.apply_affine(x.detach(), G, polyphase=poly))
+        both = cuda_ms(lambda: torch.autograd.grad(ada.apply_affine(x, G, polyphase=poly), x, gout))
+        ms.setdefault(poly, []).append((fwd, both))
+    for poly, name in ((True, "polyphase"), (False, "interleaved")):
+        (f1, b1), (f2, b2) = ms[poly]
+        print(f"ADA resample, {name}, batch 16 at {SIZE} px, P={P} (ADA draws at p=0.3): forward "
+              f"{f1:.4f} / {f2:.4f} ms, forward + backward {b1:.4f} / {b2:.4f} ms (two turns) "
+              f"[{smi}]")
+    del x, gout
+
+    # each FIR pass on kernel A against one cuDNN depthwise call
+    sums = {}
+    for form, name, shape, taps, up, down, pad, lib in ada_passes(dev, P):
+        xp = torch.randn(shape, generator=rng, device=dev)
+        y = upfirdn2d(xp, taps, up, down, pad)
+        check(max_err(lib(xp), y) <= 1e-5 * y.abs().max().item(),
+              f"depthwise yardstick disagrees with the {form} {name}")
+        t_a = cuda_ms(lambda: upfirdn2d(xp, taps, up, down, pad))
+        t_lib = cuda_ms(lambda: lib(xp))
+        b_p, by = bound((xp.numel() + y.numel()) * 4, y.numel() * taps.numel() * 2)
+        sums.setdefault(form, [0.0, 0.0, 0.0])
+        sums[form] = [u + v for u, v in zip(sums[form], (t_a, t_lib, b_p))]
+        print(f"ADA {form} {name} {tuple(xp.shape)} -> {tuple(y.shape)}: kernel A {t_a:.4f} ms, "
+              f"cuDNN depthwise {t_lib:.4f} ms, bound {b_p:.4f} ms ({by}) [{smi}]")
+        del xp, y
+    for form, (t_a, t_lib, b_p) in sums.items():
+        print(f"ADA {form} FIR passes, forward, summed: kernel A {t_a:.4f} ms, cuDNN depthwise "
+              f"{t_lib:.4f} ms, bound {b_p:.4f} ms [{smi}]")
+    return kernels
+
+
 def time_training(tr, smi):
     """ms per training step (host clock around synchronised steps) for the
-    three kinds of step, then a profile of one ADA-live plain step."""
+    three kinds of step; the plain step in the resample's three settings;
+    then a profile of one ADA-live plain step in each form."""
     def step_ms(step, reps=3):
         tr.train_step(step)
         torch.cuda.synchronize()
@@ -652,15 +962,43 @@ def time_training(tr, smi):
           f"{both:.2f} ms (R1 about {both - path:.2f} ms); at the default cadence "
           f"(R1 every 16, path every 4) {(12 * plain + 3 * path + both) / 16:.2f} ms/step "
           f"[{smi}]")
+    tags = ("upfirdn2d_kernel", "flr_fwd", "flr_bwd", "flr_db", "gather_kernel", "scatter_kernel",
+            "gather2_kernel", "scatter2_kernel")
     profile(lambda: tr.train_step(1), f"one ADA-live plain training step (batch 16, {SIZE} px)",
-            smi, ("upfirdn2d_kernel", "flr_fwd", "flr_bwd", "flr_db", "gather_kernel",
-                  "scatter_kernel"))
+            smi, tags)
+
+    # the plain step with the resample in three settings, in turns
+    import contextlib
+
+    from diagan_tpu_torch.ops import _build
+
+    buckets = tr.ada_pad_buckets
+    settings = {"interleaved, pad buckets": (contextlib.nullcontext, buckets),
+                "interleaved, static P": (contextlib.nullcontext, None),
+                "polyphase (static P)": (polyphase_env, buckets)}
+    ms = {}
+    for name in [*settings, *reversed(settings)]:
+        env, tr.ada_pad_buckets = settings[name]
+        _build.reset_launches()
+        with env():
+            ms.setdefault(name, []).append(step_ms(1, reps=2))
+        ran, idle = (WARP2, WARP) if env is polyphase_env else (WARP, WARP2)
+        check(all(_build.LAUNCHES[k] > 0 for k in ran) and
+              all(_build.LAUNCHES[k] == 0 for k in idle), f"{name} launches {_build.LAUNCHES}")
+    tr.ada_pad_buckets = buckets
+    for name, (t1, t2) in ms.items():
+        print(f"plain step, ADA p={tr.ada_aug_p}, {name}: {t1:.2f} / {t2:.2f} ms (two turns), "
+              f"mean {(t1 + t2) / 2:.2f} ms [{smi}]")
+    with polyphase_env():
+        profile(lambda: tr.train_step(1), f"one polyphase ADA-live plain training step "
+                f"(batch 16, {SIZE} px)", smi, tags)
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
-                        help="stop after phase 3b (build and check the kernels)")
+                        help="stop after phase 3c (build and check the kernels and the "
+                             "polyphase resample)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a card",
@@ -789,6 +1127,9 @@ def main(argv=None):
     errs = {"flr_bwd": check_act_backward(dev, rng_b, ch),
             "fir_bwd": check_fir_backward(dev, rng_b, ch, k4)}
     errs["gather"], errs["scatter"] = check_warp(dev, rng_b)
+    # 3c. the polyphase ADA kernels, and the resample they serve
+    errs["gather2"], errs["scatter2"] = check_warp2(dev, rng_b)
+    check_polyphase_resample(dev, rng_b)
     if args.kernels_only:
         print(smi)
         return 0
@@ -951,6 +1292,7 @@ def main(argv=None):
     for k in kernels:
         k["launches"] = total[k["name"]]
     kernels += time_new_kernels(dev, rng_b, ch, k4, smi, total, errs)
+    kernels += time_polyphase(dev, rng_b, smi, total, errs)
     time_training(tr1, smi)
     print(f"launches on the main paths: serving {launches_gen} + {launches_drs}; "
           f"training {launches_train}")

@@ -11,7 +11,10 @@ same resampling:
   - `apply_affine`: reflect pad, sym6 2x up-filter (two 12-tap passes),
     the affine bilinear warp at 2x, sym6 filter + 2x down (two passes),
     crop. sym6 is orthonormal, so the identity transform gives the input
-    back exactly;
+    back exactly. The polyphase form of the same resample (`polyphase=True`,
+    or DIAGAN_TPU_ADA_POLYPHASE=1 on the card) holds the 2x buffer as its
+    two y-phase planes and the warp output as its four parity quarter
+    grids, so every FIR pass is a compact stride-1 one;
   - `apply_color`: per-channel FMAs, out_i = C_i0 r + C_i1 g + C_i2 b + C_i3.
 
 The matrices are drawn on the host, from an explicit CPU torch.Generator:
@@ -28,12 +31,14 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from diagan_tpu_torch.ops import affine_gather, upfirdn2d
+from diagan_tpu_torch.ops import affine_gather, affine_gather_2phase, upfirdn2d
+from diagan_tpu_torch.ops.ada_phase import PARITIES
 
 # sym6 wavelet scaling filter, the reference's antialiasing kernel.
 # Orthonormal: sum(k^2) == 1, sum(k) == sqrt(2).
@@ -234,18 +239,69 @@ def _antialiased_resample(x, Ginv, P):
     return out[:, :, 3:3 + h, 3:3 + w]
 
 
+@functools.cache
+def _polyphase_taps(device):
+    """(y phase 0, y phase 1, the four 6x6 down taps in PARITIES order) on
+    `device`. Up: x2[2m + phi] = sum_t k[2t + phi] xp[m + t - d_phi]; down:
+    out[o] = sum_t c0[t] Y0[o + t - 2] + c1[t] Y1[o + t - 3] per axis, with
+    c0[t] = k[10 - 2t], c1[t] = k[11 - 2t] (diagan_tpu/ops/ada_phase.py has
+    the identities). Each is given flipped, as the op convolves."""
+    k = np.asarray(SYM6, np.float32)
+    c_tap = (k[10::-2], k[11::-2])
+    taps = [k[0::2][::-1].reshape(-1, 1), k[1::2][::-1].reshape(-1, 1)]
+    taps += [np.outer(c_tap[a][::-1], c_tap[b][::-1]) for a, b in PARITIES]
+    return tuple(torch.tensor(np.ascontiguousarray(t), device=device) for t in taps)
+
+
+def _polyphase_resample(x, Ginv, P):
+    """The same sym6 resample as `_antialiased_resample`, at ONE reflect pad
+    P, in polyphase form: reflect pad, the 12-tap x up-pass, the two 6-tap
+    y-phase passes (the planes v0, v1 of the 2x buffer), the two-phase warp
+    into four parity quarter grids, four 6x6 stride-1 FIRs summed, crop.
+    Equal to the interleaved form up to fp32 summation order."""
+    n, c, h, w = x.shape
+    s = h + 2 * P
+    kxf = _sym6_taps(x.device)[1]
+    b0, b1, *down = _polyphase_taps(x.device)
+    coef = _to(_warp_coef(Ginv, h, P).contiguous(), x.device)
+    xp = F.pad(x.float(), (P, P, P, P), mode="reflect")
+    a_buf = upfirdn2d(xp, kxf, up=(2, 1), pad=(PAD_K, PAD_K - 1, 0, 0))
+    v0 = upfirdn2d(a_buf, b0, pad=(0, 0, 3, 2))
+    v1 = upfirdn2d(a_buf, b1, pad=(0, 0, 2, 3))
+    ys = affine_gather_2phase(v0, v1, coef, 2 * h + 2 * PAD_K, 2 * s)
+    out = None
+    for y, (a, b), k2 in zip(ys, PARITIES, down):
+        py0, px0 = (2, 3)[a], (2, 3)[b]
+        term = upfirdn2d(y, k2, pad=(px0, 5 - px0, py0, 5 - py0))
+        out = term if out is None else out + term
+    return out[:, :, 3:3 + h, 3:3 + w]
+
+
+def _polyphase_auto(device):
+    """The polyphase opt-in: DIAGAN_TPU_ADA_POLYPHASE=1, honoured for CUDA
+    tensors only (the JAX package honours it on its accelerator only, so on
+    the CPU both take the interleaved form)."""
+    return os.environ.get("DIAGAN_TPU_ADA_POLYPHASE", "0") == "1" and device.type == "cuda"
+
+
 def pad_buckets_for(pad_frac):
     """The trainer's bucket fractions: those of (0.25, 0.5) below pad_frac
     (None when there are none: one static pad)."""
     return tuple(f for f in (0.25, 0.5) if f < pad_frac) or None
 
 
-def _apply_affine_nchw(x, G, pad_frac=0.75, pad_buckets=None):
+def _apply_affine_nchw(x, G, pad_frac=0.75, pad_buckets=None, polyphase=None):
     n, c, h, w = x.shape
     if h != w:
         raise ValueError(f"ADA's antialiased path takes square images, got {h}x{w}")
     Ginv = torch.linalg.inv(torch.as_tensor(G, dtype=torch.float32, device="cpu"))
     P = min(h - 1, int(pad_frac * h) + PAD_K)
+    if polyphase is None:
+        polyphase = _polyphase_auto(x.device)
+    if polyphase:
+        # the largest pad always, as the JAX package: its polyphase branch
+        # returns before the pad-bucket switch
+        return _polyphase_resample(x, Ginv, P)
     if pad_buckets:
         # smallest static bucket that covers this batch's transforms; the
         # resample costs ~(1 + 2P/h)^2, and outputs are equal within coverage
@@ -257,12 +313,15 @@ def _apply_affine_nchw(x, G, pad_frac=0.75, pad_buckets=None):
     return _antialiased_resample(x, Ginv, P)
 
 
-def apply_affine(images, G, pad_frac=0.75, pad_buckets=None):
+def apply_affine(images, G, pad_frac=0.75, pad_buckets=None, polyphase=None):
     """Apply per-image affine matrices G (n, 3, 3) (output NDC -> input NDC
     through G^-1) to NHWC images with the antialiased sym6 pipeline.
     pad_frac sets the largest reflect pad; pad_buckets (fractions, e.g.
-    (0.25, 0.5)) lets each call take the smallest pad that covers its batch."""
-    out = _apply_affine_nchw(images.permute(0, 3, 1, 2), G, pad_frac, pad_buckets)
+    (0.25, 0.5)) lets each call take the smallest pad that covers its batch.
+    polyphase selects the polyphase form of the same resample (None: the
+    DIAGAN_TPU_ADA_POLYPHASE=1 opt-in, for CUDA tensors only); it always
+    takes the largest pad and ignores pad_buckets, as the JAX package does."""
+    out = _apply_affine_nchw(images.permute(0, 3, 1, 2), G, pad_frac, pad_buckets, polyphase)
     return out.permute(0, 2, 3, 1)
 
 

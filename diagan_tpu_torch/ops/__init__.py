@@ -1,6 +1,13 @@
 """Kernels of the port, each with its plain-torch version, which CPU tensors
 take: upfirdn2d and its backward (CUDA C++), fused bias-LeakyReLU and its
-backward (Triton), and ADA's affine warp and its adjoint (CUDA C++)."""
+backward (Triton), and ADA's affine warp and its adjoint on the interleaved
+2x buffer and on its two y-phase planes (CUDA C++)."""
+from diagan_tpu_torch.ops.ada_phase import (
+    affine_gather2_plain,
+    affine_gather_2phase,
+    affine_scatter2,
+    affine_scatter2_plain,
+)
 from diagan_tpu_torch.ops.fused_act import (
     fused_leaky_relu,
     fused_leaky_relu_backward,
@@ -17,8 +24,12 @@ from diagan_tpu_torch.ops.warp import (
 
 __all__ = [
     "affine_gather",
+    "affine_gather2_plain",
+    "affine_gather_2phase",
     "affine_gather_plain",
     "affine_scatter",
+    "affine_scatter2",
+    "affine_scatter2_plain",
     "affine_scatter_plain",
     "fused_leaky_relu",
     "fused_leaky_relu_backward",

@@ -28,7 +28,8 @@ _loaded: dict[str, ctypes.CDLL] = {}
 # launches its kernel and nowhere else; a run zeroes them before the path it
 # drives and reads them after, to show that the path went through the kernels.
 LAUNCHES = {"upfirdn2d": 0, "upfirdn2d_backward": 0, "fused_leaky_relu": 0,
-            "fused_leaky_relu_backward": 0, "affine_warp_gather": 0, "affine_warp_scatter": 0}
+            "fused_leaky_relu_backward": 0, "affine_warp_gather": 0, "affine_warp_scatter": 0,
+            "affine_warp2_gather": 0, "affine_warp2_scatter": 0}
 
 
 def reset_launches():

@@ -97,13 +97,17 @@ def _check(name, t, ndim):
                          f"got {t.dtype} {tuple(t.shape)}")
 
 
+def _check_coef(coef, n, device):
+    if coef.shape != (n, 6) or coef.device != device:
+        raise ValueError(f"coef must be ({n}, 6) on the input's device, got {tuple(coef.shape)}")
+    _check("coef", coef, 2)
+
+
 def _launch(which, src, coef, out, s2, win):
     from diagan_tpu_torch.ops import _build
 
     n, c = src.shape[:2]
-    if coef.shape != (n, 6) or coef.device != src.device:
-        raise ValueError(f"coef must be ({n}, 6) on the input's device, got {tuple(coef.shape)}")
-    _check("coef", coef, 2)
+    _check_coef(coef, n, src.device)
     fn = _fns()[0 if which == "affine_warp_gather" else 1]
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream

@@ -42,6 +42,7 @@ from diagan_tpu_torch.cli import train_ffhq, train_ffhq_phase2  # noqa: E402
 from diagan_tpu_torch.data.ffhq import load_ffhq  # noqa: E402
 from diagan_tpu_torch.data.synthetic import synthetic_natural  # noqa: E402
 from diagan_tpu_torch.eval.evaluate import read_stylegan2_ckpt  # noqa: E402
+from diagan_tpu_torch.models import ada as TA  # noqa: E402
 from diagan_tpu_torch.models import stylegan2 as T  # noqa: E402
 from diagan_tpu_torch.score import calculate_scores  # noqa: E402
 from diagan_tpu_torch.train import stylegan2_trainer as TT  # noqa: E402
@@ -189,6 +190,30 @@ def test_g_step_through_ada_matches_jax(tmp_path):
     np.testing.assert_allclose(float(m["g"]), float(loss), atol=ATOL, rtol=RTOL)
     _assert_grads(tr.gen, grads, jax_params.generator_state_dict)
     assert all(p.requires_grad for p in tr.disc.parameters())
+
+
+def test_g_step_through_polyphase_ada_matches_jax(tmp_path, monkeypatch):
+    """The G step with the polyphase opt-in on (monkeypatched: on the CPU the
+    environment variable is not honoured) against the G step through JAX's
+    polyphase apply_affine; the trainer's pad buckets are ignored under
+    polyphase in both."""
+    gen, gparams, disc, dparams, d = _setup()
+
+    def loss_fn(p, dp):
+        G, C = d["aug0"]
+        fake = JA.apply_affine(_jax_fake(gen, p, d), jnp.asarray(G), polyphase=True)
+        fake = JA.apply_color(fake, jnp.asarray(C))
+        return JL.g_nonsaturating_loss(disc.apply({"params": dp}, fake)[0])
+
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(gparams, dparams)
+    calls, resample = [], TA._polyphase_resample
+    monkeypatch.setattr(TA, "_polyphase_auto", lambda device: True)
+    monkeypatch.setattr(TA, "_polyphase_resample", lambda *a: calls.append(a[2]) or resample(*a))
+    tr = _port_trainer(tmp_path)
+    m = tr.g_step(_fakes(d), _aug(d, 0))
+    assert calls == [SIZE - 1]  # one augment, at the largest pad min(h - 1, 0.75 h + 6)
+    np.testing.assert_allclose(float(m["g"]), float(loss), atol=ATOL, rtol=RTOL)
+    _assert_grads(tr.gen, grads, jax_params.generator_state_dict)
 
 
 def test_path_regularisation_matches_jax(tmp_path):
