@@ -7,24 +7,32 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. card name and power limit (nvidia-smi); TF32 off for convs and matmuls;
   2. build the CUDA kernels from csrc/ (nvcc, sm_90a, one process per source,
      all started together) and compile the Triton ones;
-  3. each serving kernel against its plain-torch version on the card:
-     upfirdn2d on the tests/test_ops.py configs, an asymmetric rank-2 and a
-     1-D (1, k) kernel, and every StyleGAN2-256 shape at batch 16, in fp32
-     and bf16; fused bias-LeakyReLU at the real shapes in fp32 and bf16;
+  3. kernel A (upfirdn2d) against its plain-torch version on the card, on
+     every main-path shape (G and D blurs and the ToRGB skip at batch 16 and
+     the serving batch of 32, ADA's passes of both forms at each pad bucket),
+     each instance's edge shapes (odd widths, 8-9 px planes, pads of both
+     parities) and the odd configurations of the CPU tests: fp32, bf16 and
+     channels-last, each call launching the instance fir_instance names,
+     then the backward and double backward; fused bias-LeakyReLU at the real
+     shapes in fp32 and bf16;
   3b. the training kernels against their plain versions: the fused-act
      backward (dx, db, double backward) at every activation shape, fp32 and
-     bf16; the upfirdn2d backward and double backward at every G/D blur and
-     every ADA 12-tap pass at each pad bucket; ADA's warp gather and its
-     adjoint at each bucket's S2, six geometries and one batch of ADA draws;
+     bf16; ADA's warp gather and its adjoint at each bucket's S2, six
+     geometries and one batch of ADA draws;
   3c. the polyphase ADA kernels against their plain versions: the two-phase
      warp gather and its adjoint at each bucket's S2, the same geometries and
      draws; then the whole polyphase resample at 256 px, batch 16, against
-     the interleaved one at the same reflect pad, values and image gradient
-     (--kernels-only stops here);
+     the interleaved one at the same reflect pad, values and image gradient;
+  3d. each kernel A instance at its largest main-path shape against one
+     cuDNN depthwise call and its bytes bound (device time of CUDA-graph
+     replays, in turns), every ADA pass of both forms likewise; the
+     two-phase warp pair, and its gather in turns with the interleaved
+     gather and grid_sample (--kernels-only stops here);
   4. the serving slice at full width (StyleGAN2-256, channel_multiplier 2,
      style_dim 512, n_mlp 8, random weights from a seed): save a checkpoint,
-     run cli.generate, draw DRS samples, with the launch counts zeroed before
-     and read after each path; then one G and one D forward on the card and
+     run cli.generate, draw DRS samples, with the launch counts (per kernel,
+     and kernel A's per instance: the generic one must not launch) zeroed
+     before and read after each path; then one G and one D forward on the card and
      on the CPU, with the same weights and noises;
   5. timings at the real shapes: kernel, plain version, one PyTorch library
      call for the same function, and the bytes/ops bound; G images/s, DRS
@@ -41,13 +49,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      length), and the polyphase augment and its image gradient, card against
      CPU at 32 px, width 1/4, with injected draws;
   7. the training kernels at their largest path shapes (kernel, plain,
-     library, bound), ms per plain / path / R1 step, peak device memory and a
-     profile of one ADA-live step; then the two-phase warp pair, one augment
-     call (forward, forward + backward) polyphase against interleaved at the
-     same pad, each FIR pass of both forms on kernel A against a cuDNN
-     depthwise convolution, the plain step polyphase / interleaved at the
-     static pad / interleaved with the trainer's pad buckets, and a profile
-     of one polyphase ADA-live step.
+     library, bound), one augment call (forward, forward + backward)
+     polyphase against interleaved at the same pad; ms per plain / path / R1
+     step, peak device memory and a profile of one ADA-live step; the plain
+     step polyphase / interleaved at the static pad / interleaved with the
+     trainer's pad buckets, and a profile of one polyphase ADA-live step.
+Each phase prints its start, in seconds since the script started.
 The last lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a card it exits 2 and prints no result.
 """
@@ -57,6 +64,7 @@ import argparse
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -72,6 +80,14 @@ SEED = 0
 SIZE, STYLE_DIM, N_MLP, CH_MULT = 256, 512, 8, 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
+
+
+T0 = time.perf_counter()
+
+
+def phase(name):
+    """A phase's start, with the seconds since the script started."""
+    print(f"[{time.perf_counter() - T0:.1f} s] {name}", flush=True)
 
 
 def check(cond, msg):
@@ -90,6 +106,32 @@ def cuda_ms(fn, iters=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=10):
+    """Device time of one call of fn: `iters` calls captured in a CUDA graph,
+    whose replays are timed with CUDA events, so the host's cost of each
+    launch (Python, the wrapper, the CUDA launch call) is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the graph
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * iters)
 
 
 def bound(nbytes, flops):
@@ -145,6 +187,8 @@ def profile(fn, label, smi, tags):
         print(f"  {tag}: {ms:.3f} ms, {100 * ms / total:.2f}% of summed kernel time")
 
 FORWARD_KERNELS = ("upfirdn2d", "fused_leaky_relu")  # what sampling launches
+# kernel A's device kernels in a profile: all of them, then by kernel
+FIR_TAGS = ("fir_", "fir_kernel", "fir_xdown2_kernel", "fir_generic_kernel")
 WARP = ("affine_warp_gather", "affine_warp_scatter")  # ADA's interleaved resample
 WARP2 = ("affine_warp2_gather", "affine_warp2_scatter")  # its polyphase form
 N_DATA = 512  # synthetic training images
@@ -199,6 +243,17 @@ def ada_coef(P, seed):
 
 def max_err(got, want):
     return (got.float() - want.float()).abs().max().item()
+
+
+def fir_launches(path):
+    """Kernel A's launches by instance since the counts were last zeroed;
+    a main path must not launch the generic instance."""
+    from diagan_tpu_torch.ops import _build
+
+    fir = dict(_build.FIR_INSTANCES)
+    check(fir["generic"] == 0, f"{path} launched kernel A's generic instance: {fir}")
+    print(f"{path}: kernel A launches by instance {fir}")
+    return fir
 
 
 def check_act_backward(dev, rng, ch):
@@ -266,34 +321,136 @@ def check_act_backward(dev, rng, ch):
     return max(err.values())
 
 
-def check_fir_backward(dev, rng, ch, k4):
-    """The upfirdn2d backward and double backward (kernel A again) against
-    autograd through the plain version, at every G/D blur shape of the
-    training path and every ADA 12-tap pass at each pad bucket."""
-    from diagan_tpu_torch.models.ada import PAD_K, _sym6_taps
-    from diagan_tpu_torch.ops import upfirdn2d, upfirdn2d_plain
+def ptxas_report(log):
+    """One line per kernel of an nvcc -Xptxas -v log: its name (demangled
+    where c++filt is on the PATH), registers and spills."""
+    props, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+            props[name] = []
+        elif name and ("spill" in ln or "registers" in ln):
+            props[name].append(ln.split(":")[-1].strip())
+    names = list(props)
+    if names and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+    return [f"{n.replace('(anonymous namespace)::', '')[:110]}: {'; '.join(v)}"
+            for n, v in zip(names, props.values())]
 
+
+def _family_pad(k, up, down):
+    """The pad (p0, p1) of one axis that the main paths give a k-tap filter:
+    the output is up / down times the input."""
+    p0 = k // 2 - (down == 2)
+    return p0, (k - 1 if down == 1 else k - 2) - p0
+
+
+def fir_cases(dev, ch, k4):
+    """upfirdn2d cases: (input shape, taps, up, down, pad, full). Every call
+    family of the main paths at its shapes (the G and D blurs and the ToRGB
+    skip at each resolution, ADA's interleaved passes at each pad bucket and
+    the polyphase passes at the largest, batch 16; the SIZE px blurs also at
+    the serving batch of 32, which serving runs forward in fp32 only: those
+    cases are not `full`); then each instance's family off the main paths
+    (odd widths like 257, widths that are not a multiple of the 32-lane tile
+    or of the pair store, 8-9 px planes, pads of both parities, taps that are
+    not symmetric); then the odd configurations of the port's CPU tests,
+    which the generic instance takes where they are not a family."""
+    from diagan_tpu_torch.models.ada import PAD_K, _polyphase_taps, _sym6_taps
+    from diagan_tpu_torch.ops import make_resample_kernel
+    from diagan_tpu_torch.ops.ada_phase import PARITIES
+    from diagan_tpu_torch.ops.upfirdn2d import _FAMILIES
+
+    k16 = k4 * 4
     cases = []
-    for res in resolutions()[1:]:
-        cases.append(((16, ch[res], res + 1, res + 1), k4 * 4, 1, 1, (1, 1)))  # G up blur
-        cases.append(((16, 3, res // 2, res // 2), k4 * 4, 2, 1, (2, 1)))  # ToRGB skip
-    for res in resolutions()[1:]:
-        cases.append(((16, ch[res], res, res), k4, 1, 1, (2, 2)))  # D conv blur
-        cases.append(((16, ch[res], res, res), k4, 1, 1, (1, 1)))  # D skip blur
+    for n in (16, 32):
+        for res in resolutions()[1:] if n == 16 else [SIZE]:
+            full = n == 16
+            cases.append(((n, ch[res], res + 1, res + 1), k16, 1, 1, (1, 1), full))  # G up blur
+            cases.append(((n, 3, res // 2, res // 2), k16, 2, 1, (2, 1), full))  # ToRGB skip
+            cases.append(((n, ch[res], res, res), k4, 1, 1, (2, 2), full))  # D conv blur
+            cases.append(((n, ch[res], res, res), k4, 1, 1, (1, 1), full))  # D skip blur
     kyf, kxf, ky, kx = _sym6_taps(dev)
+    win = ada_win()
     for P in ada_pads():
         s = SIZE + 2 * P
         cases.append(((16, 3, s, s), kyf, (1, 2), 1, (0, 0, PAD_K, PAD_K - 1)))
         cases.append(((16, 3, 2 * s, s), kxf, (2, 1), 1, (PAD_K, PAD_K - 1, 0, 0)))
-    win = ada_win()
     cases.append(((16, 3, win, win), ky, 1, (1, 2), (0, 0, PAD_K - 1, PAD_K - 1)))
     cases.append(((16, 3, win // 2, win), kx, 1, (2, 1), (PAD_K - 1, PAD_K - 1, 0, 0)))
-    err = 0.0
-    for shape, taps, up, down, pad in cases:
-        x = torch.randn(shape, generator=rng, device=dev, requires_grad=True)
+    s = SIZE + 2 * ada_pads()[-1]
+    b0, b1, *down = _polyphase_taps(dev)
+    cases.append(((16, 3, s, s), kxf, (2, 1), 1, (PAD_K, PAD_K - 1, 0, 0)))
+    cases += [((16, 3, s, 2 * s), b, 1, 1, (0, 0, 3 - phi, 2 + phi))
+              for phi, b in enumerate((b0, b1))]
+    cases += [((16, 3, win // 2, win // 2), k2, 1, 1, ((2, 3)[b], (3, 2)[b], (2, 3)[a], (3, 2)[a]))
+              for (a, b), k2 in zip(PARITIES, down)]
+    gen = torch.Generator(dev).manual_seed(SEED + 20)
+    for kh, kw, up, dn in _FAMILIES:
+        taps = torch.randn(kh, kw, generator=gen, device=dev)
+        (px0, px1), (py0, py1) = _family_pad(kw, up[0], dn[0]), _family_pad(kh, up[1], dn[1])
+        for shape in ((2, 5, 9, 9), (2, 3, 37, 257), (1, 2, 8, 70), (3, 4, 9, 8)):
+            cases.append((shape, taps, up, dn, (px0, px1, py0, py1)))
+            cases.append((shape, taps, up, dn, (px0 + 1, px1 - 1, py0 + 1, py1 - 1)))
+    asym = torch.randn(3, 4, generator=gen, device=dev)
+    row5 = torch.randn(1, 5, generator=gen, device=dev)
+    small = (2, 3, 12, 9)
+    cases += [(small, torch.tensor(make_resample_kernel(k), device=dev), up, dn, pad)
+              for up, dn, pad, k in [
+                  (1, 1, (1, 1), [1, 3, 3, 1]), (1, 1, (1, 1), [1, 2, 1]),
+                  (1, 1, (2, 1), [1, 3, 3, 1]), (2, 1, (2, 1), [1, 3, 3, 1]),
+                  (1, 2, (1, 1), [1, 3, 3, 1]), (2, 1, (1, 0), [1, 2, 1]),
+                  (1, 2, (0, 0), [1, 1]), (1, 1, (-1, 2), [1, 3, 3, 1]),
+                  (3, 2, (2, 2), [1, 3, 3, 1])]]
+    cases += [(small, asym, 1, 1, (1, 2, 0, 1)), (small, asym, 2, 2, (2, 1)),
+              (small, row5, (2, 1), 1, (2, 1, 0, 0))]
+    return [c if len(c) == 6 else (*c, True) for c in cases]
+
+
+def check_fir(dev, rng, cases):
+    """Kernel A against its plain version on each case: the forward in fp32,
+    bf16 and channels-last, each call launching exactly the instance that
+    fir_instance names (the generic one for channels-last); then in fp32 the
+    backward and the double backward against autograd through the plain
+    version; a case that is not `full` only in fp32, forward. Returns
+    {instance: max fp32 abs err} and the largest forward and backward
+    errors."""
+    from diagan_tpu_torch.ops import _build, upfirdn2d, upfirdn2d_plain
+    from diagan_tpu_torch.ops.upfirdn2d import _backward_args, fir_instance, layout
+
+    errs, err_fwd, err_bwd = {}, 0.0, 0.0
+
+    def note(inst, e):
+        errs[inst] = max(errs.get(inst, 0.0), e)
+
+    for shape, taps, up, down, pad, full in cases:
+        x32 = torch.randn(shape, generator=rng, device=dev)
+        layouts = (x32, x32.bfloat16(), x32.contiguous(memory_format=torch.channels_last))
+        for x in layouts if full else layouts[:1]:
+            inst = fir_instance(*taps.shape, up, down, x.dtype, layout(x))
+            _build.reset_launches()
+            got = upfirdn2d(x, taps, up, down, pad)
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in _build.FIR_INSTANCES.items() if v}
+            check(launched == {inst: 1}, f"upfirdn2d {shape} {x.dtype} launched {launched}, "
+                                         f"not {inst}")
+            want = upfirdn2d_plain(x, taps, up, down, pad)
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"upfirdn2d {shape} shape/dtype")
+            e = max_err(got, want)
+            tol = (1e-2 if x.dtype == torch.bfloat16 else 1e-5) * want.float().abs().max().item()
+            check(e <= tol, f"upfirdn2d {inst} {shape} up={up} down={down} pad={pad} "
+                            f"{x.dtype}: err {e} > {tol}")
+            if x.dtype == torch.float32:
+                note(inst, e)
+                err_fwd = max(err_fwd, e)
+        if not full:
+            continue
+        x = x32.requires_grad_(True)
         v = torch.randn(shape, generator=rng, device=dev)
-        w = None
-        res = []
+        w, res = None, []
         for f in (upfirdn2d, upfirdn2d_plain):
             y = f(x, taps, up, down, pad)
             if w is None:
@@ -302,16 +459,23 @@ def check_fir_backward(dev, rng, ch, k4):
             (gw,) = torch.autograd.grad((gx * v).sum(), w)
             res.append((gx.detach(), gw))
         torch.cuda.synchronize()
-        for what, got, want in zip(("backward", "double backward"), *res):
+        b_up, b_down, _ = _backward_args(shape[2:], w.shape[2:], *taps.shape, up, down, pad)
+        insts = (fir_instance(*taps.shape, b_up, b_down, torch.float32, torch.contiguous_format),
+                 fir_instance(*taps.shape, up, down, torch.float32, torch.contiguous_format))
+        for what, inst, got, want in zip(("backward", "double backward"), insts, *res):
             e = max_err(got, want)
             check(e <= 1e-5 * want.abs().max().item(),
-                  f"upfirdn2d {what} {shape} up={up} down={down} pad={pad}: err {e}")
-            err = max(err, e)
-        del x, v, w, res
-    print(f"upfirdn2d backward: {len(cases)} shapes (G/D blurs, ADA 12-tap passes at pads "
-          f"{ada_pads()}) match autograd through plain, backward and double backward; "
-          f"max abs err {err:.3e} (tol 1e-5 x max|out|)")
-    return err
+                  f"upfirdn2d {what} ({inst}) {shape} up={up} down={down} pad={pad}: err {e}")
+            note(inst, e)
+            err_bwd = max(err_bwd, e)
+        del x, x32, v, w, res, got, want
+    print(f"upfirdn2d: {len(cases)} cases (every main-path shape, each instance's edge shapes, "
+          f"the odd configurations) x (fp32, bf16, channels-last) match plain, each launching "
+          f"the instance fir_instance names; backward and double backward in fp32 match "
+          f"autograd through plain. Max fp32 abs err by instance: "
+          f"{ {k: float(f'{v:.3e}') for k, v in sorted(errs.items())} } (tol 1e-5 x max|out|; "
+          f"bf16 1e-2 x max|out|)")
+    return errs, err_fwd, err_bwd
 
 
 def warp_coefs(P, dev):
@@ -441,7 +605,9 @@ def train_path(dev, smi, work):
     fixed p, R1, path regularisation, logit sweeps), phase 2 from that
     checkpoint with the LDR scores and the twin DRS D, then cli.generate and
     DRS on the phase-2 checkpoint. Launch counts are zeroed before and read
-    after each path. Returns (phase-1 trainer, {path: launches})."""
+    after each path; kernel A's generic instance must launch on none.
+    Returns (phase-1 trainer, {path: launches}, {path: kernel A launches by
+    instance})."""
     import pickle
 
     from diagan_tpu_torch.cli import generate, train_ffhq, train_ffhq_phase2
@@ -459,7 +625,7 @@ def train_path(dev, smi, work):
     common = ["-d", "ffhq", "-r", str(data), "--size", str(SIZE), "--batch", "16",
               "--augment", "--augment_p", "0.3", "--work_dir", str(work),
               "--seed", str(SEED), "--device", dev.type]
-    launches = {}
+    launches, fir = {}, {}
 
     def drive(name, fn, kernels, idle=()):
         _build.reset_launches()
@@ -467,6 +633,7 @@ def train_path(dev, smi, work):
         out = fn()
         torch.cuda.synchronize()
         launches[name] = dict(_build.LAUNCHES)
+        fir[name] = fir_launches(name)
         check(all(launches[name][k] > 0 for k in kernels) and
               all(launches[name][k] == 0 for k in idle), f"{name} launches {launches[name]}")
         print(f"{name}: {time.perf_counter() - t0:.2f} s, launches {launches[name]}")
@@ -528,7 +695,7 @@ def train_path(dev, smi, work):
     check((work / "p1_poly" / "checkpoint" / "000004.pt").is_file(),
           "the polyphase run wrote no checkpoint")
     print(f"polyphase phase 1 metrics: {finite(trp, ('d', 'g', 'r1', 'path'))}")
-    return tr1, launches
+    return tr1, launches, fir
 
 
 def grads_card_vs_cpu(dev, work):
@@ -689,26 +856,6 @@ def time_new_kernels(dev, rng, ch, k4, smi, launches, errs):
     })
     del x, out, out_p, gy, gx
 
-    # ADA's largest 12-tap pass backward: the x up-pass at the largest bucket
-    from diagan_tpu_torch.models.ada import PAD_K, _sym6_taps
-
-    s = SIZE + 2 * ada_pads()[-1]
-    kxf = _sym6_taps(dev)[1]
-    x = torch.randn((16, 3, 2 * s, s), generator=rng, device=dev, requires_grad=True)
-    out = upfirdn2d(x, kxf, up=(2, 1), pad=(PAD_K, PAD_K - 1, 0, 0))
-    gy = torch.randn(out.shape, generator=rng, device=dev)
-    w12 = kxf.expand(3, 1, 1, 12).contiguous()
-    gx = torch.autograd.grad(out, x, gy, retain_graph=True)[0]
-    lib12 = F.conv2d(gy, w12, stride=(1, 2), padding=(0, PAD_K - 1), groups=3)
-    check(max_err(lib12, gx) <= 1e-5 * gx.abs().max().item(),
-          "depthwise conv2d yardstick disagrees with the 12-tap backward")
-    b12, _ = bound((gy.numel() + x.numel()) * 4, x.numel() * 12 * 2)
-    print(f"upfirdn2d backward, ADA 12-tap x pass {tuple(gy.shape)} -> {tuple(x.shape)}: "
-          f"{cuda_ms(lambda: torch.autograd.grad(out, x, gy, retain_graph=True)):.4f} ms, "
-          f"conv2d {cuda_ms(lambda: F.conv2d(gy, w12, stride=(1, 2), padding=(0, PAD_K - 1), groups=3)):.4f} ms, "
-          f"bound {b12:.4f} ms (bytes) [{smi}]")
-    del x, out, gy, gx, lib12
-
     # the warp pair at the largest bucket, on one batch of ADA draws at p = 1
     win = ada_win()
     P = ada_pads()[-1]
@@ -769,7 +916,8 @@ def time_new_kernels(dev, rng, ch, k4, smi, launches, errs):
 
 def ada_passes(dev, P):
     """Every FIR pass of ADA's resample at reflect pad P, batch 16, in both
-    forms: (form, pass, input shape, taps, up, down, pad, one cuDNN
+    forms, and the backwards of the two interleaved up-passes (the largest
+    down passes): (form, pass, input shape, taps, up, down, pad, one cuDNN
     depthwise call that computes the same function, up to a crop)."""
     import torch.nn.functional as F
 
@@ -814,22 +962,103 @@ def ada_passes(dev, P):
                        (px0, 5 - px0, py0, 5 - py0),
                        lambda x, k2=k2, py0=py0, px0=px0: F.conv2d(x, flip(k2), padding=3, groups=3)
                        [:, :, 3 - py0:3 - py0 + h2, 3 - px0:3 - px0 + h2]))
+    # the backward of an up-pass: flipped taps, down 2, pads (5, 5)
+    passes.append(("interleaved", "y up-pass backward", (16, 3, 2 * s, s),
+                   torch.flip(kyf, (0, 1)), 1, (1, 2), (0, 0, PAD_K - 1, PAD_K - 1),
+                   lambda x: F.conv2d(x, dw(kyf), stride=(2, 1), padding=(PAD_K - 1, 0),
+                                      groups=3)))
+    passes.append(("interleaved", "x up-pass backward", (16, 3, 2 * s, 2 * s),
+                   torch.flip(kxf, (0, 1)), 1, (2, 1), (PAD_K - 1, PAD_K - 1, 0, 0),
+                   lambda x: F.conv2d(x, dw(kxf), stride=(1, 2), padding=(0, PAD_K - 1),
+                                      groups=3)))
     return passes
 
 
-def time_polyphase(dev, rng, smi, launches, errs):
-    """The two-phase warp pair at the largest bucket (kernel, plain, library,
-    bound), one augment call polyphase against interleaved at the same pad,
-    and each FIR pass of both forms on kernel A against cuDNN."""
+def time_fir_instances(dev, rng, ch, k4, smi):
+    """Kernel A on every ADA pass of both forms at the largest pad and on the
+    SIZE px blurs (the G upsample blur and its backward, the ToRGB skip and
+    its backward), each against one cuDNN depthwise call and its bytes
+    bound. Both are timed as device time (graph_ms) in turns, kernel A,
+    cuDNN, cuDNN, kernel A, and kernel A also eagerly (cuda_ms: the host's
+    launch cost included). Then each instance at its largest such shape,
+    with its plain version. Returns {instance: kernels-line entry, without
+    launches and error}."""
     import torch.nn.functional as F
 
-    from diagan_tpu_torch.models import ada
+    from diagan_tpu_torch.ops import upfirdn2d, upfirdn2d_plain
+    from diagan_tpu_torch.ops.upfirdn2d import fir_instance
+
+    c = ch[SIZE]
+    k16 = k4 * 4
+
+    def dw(t, n):  # one filter per channel
+        return t.expand(n, 1, *t.shape).contiguous()
+
+    passes = [
+        ("blur", "G upsample blur", (16, c, SIZE + 1, SIZE + 1), k16, 1, 1, (1, 1),
+         lambda x: F.conv2d(x, dw(k16, c), padding=1, groups=c)),
+        ("blur", "G upsample blur backward", (16, c, SIZE, SIZE), k16, 1, 1, (2, 2),
+         lambda x: F.conv2d(x, dw(k16, c), padding=2, groups=c)),
+        ("blur", "ToRGB skip", (16, 3, SIZE // 2, SIZE // 2), k16, 2, 1, (2, 1),
+         lambda x: F.conv_transpose2d(x, dw(k16, 3), stride=2, padding=1, groups=3)),
+        ("blur", "ToRGB skip backward", (16, 3, SIZE, SIZE), k16, 1, 2, (1, 1),
+         lambda x: F.conv2d(x, dw(k16, 3), stride=2, padding=1, groups=3)),
+    ]
+    passes += ada_passes(dev, ada_pads()[-1])
+    largest, sums = {}, {}
+    for form, name, shape, taps, up, down, pad, lib in passes:
+        xp = torch.randn(shape, generator=rng, device=dev)
+        y = upfirdn2d(xp, taps, up, down, pad)
+        check(max_err(lib(xp), y) <= 1e-5 * y.abs().max().item(),
+              f"depthwise yardstick disagrees with the {form} {name}")
+        inst = fir_instance(*taps.shape, up, down, xp.dtype, torch.contiguous_format)
+        a1, l1, l2, a2 = (graph_ms(f) for f in (lambda: upfirdn2d(xp, taps, up, down, pad),
+                                                lambda: lib(xp), lambda: lib(xp),
+                                                lambda: upfirdn2d(xp, taps, up, down, pad)))
+        t_a, t_lib = (a1 + a2) / 2, (l1 + l2) / 2
+        t_eager = cuda_ms(lambda: upfirdn2d(xp, taps, up, down, pad))
+        nbytes = (xp.numel() + y.numel()) * 4
+        real_taps = taps.numel() // (math.prod(up) if isinstance(up, tuple) else up**2)
+        b_p, by = bound(nbytes, y.numel() * real_taps * 2)
+        if form != "blur":
+            sums.setdefault(form, [0.0, 0.0, 0.0])
+            sums[form] = [u + v for u, v in zip(sums[form], (t_a, t_lib, b_p))]
+        print(f"kernel A {inst}, {form} {name} {tuple(xp.shape)} -> {tuple(y.shape)}: "
+              f"{a1:.4f} / {a2:.4f} ms, cuDNN depthwise {l1:.4f} / {l2:.4f} ms (device time, "
+              f"two turns), bound {b_p:.4f} ms ({by}), {b_p / t_a:.2f} of the bound; kernel A "
+              f"eager {t_eager:.4f} ms [{smi}]")
+        if nbytes > largest.get(inst, (0,))[0]:
+            plain = cuda_ms(lambda: upfirdn2d_plain(xp, taps, up, down, pad), iters=2, warmup=1)
+            largest[inst] = (nbytes, {
+                "name": f"upfirdn2d/{inst}", "route": "cuda",
+                "source": "diagan_tpu_torch/csrc/upfirdn2d.cu",
+                "replaces": "diagan_tpu/ops/fir_pallas.py:44,131,226",
+                "ms": t_a, "plain_ms": plain, "bound_ms": b_p, "bound_by": by,
+                "library_ms": t_lib,
+                "shape": f"{tuple(xp.shape)} -> {tuple(y.shape)} fp32, {form} {name}; ms and "
+                         f"library_ms: device time of CUDA-graph replays, mean of two turns; "
+                         f"library: one cuDNN depthwise convolution",
+            })
+        del xp, y
+    for form, (t_a, t_lib, b_p) in sums.items():
+        print(f"ADA {form} FIR passes summed (forward, and the up-pass backwards): kernel A "
+              f"{t_a:.4f} ms, cuDNN depthwise {t_lib:.4f} ms, bound {b_p:.4f} ms [{smi}]")
+    return {inst: entry for inst, (_, entry) in largest.items()}
+
+
+def time_warp2(dev, rng, smi, errs):
+    """The two-phase warp pair at the largest bucket (kernel, plain, library,
+    bound; the kernels-line entries, without launches), and the two-phase
+    gather in turns with the interleaved gather on the same draws and
+    grid_sample."""
+    import torch.nn.functional as F
+
     from diagan_tpu_torch.ops import (
+        affine_gather,
         affine_gather2_plain,
         affine_gather_2phase,
         affine_scatter2,
         affine_scatter2_plain,
-        upfirdn2d,
     )
     from diagan_tpu_torch.ops.ada_phase import PARITIES
     from diagan_tpu_torch.ops.warp import _taps as warp_taps
@@ -879,8 +1108,7 @@ def time_polyphase(dev, rng, smi, launches, errs):
     kernels.append({
         "name": "affine_warp2_gather", "route": "cuda",
         "source": "diagan_tpu_torch/csrc/affine_warp.cu",
-        "replaces": "diagan_tpu/ops/ada_phase.py:213",
-        "launches": launches["affine_warp2_gather"], "max_abs_err": errs["gather2"],
+        "replaces": "diagan_tpu/ops/ada_phase.py:213", "max_abs_err": errs["gather2"],
         "ms": cuda_ms(lambda: affine_gather_2phase(v0, v1, coef, win, s2)),
         "plain_ms": cuda_ms(lambda: affine_gather2_plain(v0, v1, coef, win)),
         "bound_ms": b, "bound_by": by, "library_ms": cuda_ms(lambda: lib_gather(x2)),
@@ -891,8 +1119,7 @@ def time_polyphase(dev, rng, smi, launches, errs):
     kernels.append({
         "name": "affine_warp2_scatter", "route": "cuda",
         "source": "diagan_tpu_torch/csrc/affine_warp.cu",
-        "replaces": "diagan_tpu/ops/ada_phase.py:327",
-        "launches": launches["affine_warp2_scatter"], "max_abs_err": errs["scatter2"],
+        "replaces": "diagan_tpu/ops/ada_phase.py:327", "max_abs_err": errs["scatter2"],
         "ms": cuda_ms(lambda: affine_scatter2(gq, coef, s2)),
         "plain_ms": cuda_ms(lambda: affine_scatter2_plain(gq, coef, s2)),
         "bound_ms": b, "bound_by": by,
@@ -904,8 +1131,25 @@ def time_polyphase(dev, rng, smi, launches, errs):
         print(f"{k['name']} at {k['shape']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
               f"library {k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}) "
               f"[{smi}]")
+    # the two gathers do the same work on the same draws: #8 from the two
+    # y-phase planes, #6 from the interleaved buffer
+    turns = {"two-phase gather (#8)": lambda: affine_gather_2phase(v0, v1, coef, win, s2),
+             "interleaved gather (#6)": lambda: affine_gather(x2, coef, win),
+             "grid_sample": lambda: lib_gather(x2)}
+    ms = {}
+    for name in [*turns, *reversed(turns)]:
+        ms.setdefault(name, []).append(cuda_ms(turns[name]))
+    print("gathers at the largest bucket, in turns: " + "; ".join(
+        f"{name} {t1:.4f} / {t2:.4f} ms" for name, (t1, t2) in ms.items()) + f" [{smi}]")
     del v0, v1, gq, x2, xr, out_lib, g_lib, out, index
+    return kernels
 
+
+def time_polyphase(dev, rng, smi):
+    """One augment call, polyphase against interleaved at the same pad."""
+    from diagan_tpu_torch.models import ada
+
+    P = ada_pads()[-1]
     # one augment call (the resample of a batch of 16), both forms at P
     G = ada.sample_affine_matrices(16, 0.3, SIZE, SIZE, torch.Generator().manual_seed(SEED + 4))
     x = torch.randn((16, SIZE, SIZE, 3), generator=rng, device=dev).tanh().requires_grad_(True)
@@ -921,26 +1165,6 @@ def time_polyphase(dev, rng, smi, launches, errs):
               f"{f1:.4f} / {f2:.4f} ms, forward + backward {b1:.4f} / {b2:.4f} ms (two turns) "
               f"[{smi}]")
     del x, gout
-
-    # each FIR pass on kernel A against one cuDNN depthwise call
-    sums = {}
-    for form, name, shape, taps, up, down, pad, lib in ada_passes(dev, P):
-        xp = torch.randn(shape, generator=rng, device=dev)
-        y = upfirdn2d(xp, taps, up, down, pad)
-        check(max_err(lib(xp), y) <= 1e-5 * y.abs().max().item(),
-              f"depthwise yardstick disagrees with the {form} {name}")
-        t_a = cuda_ms(lambda: upfirdn2d(xp, taps, up, down, pad))
-        t_lib = cuda_ms(lambda: lib(xp))
-        b_p, by = bound((xp.numel() + y.numel()) * 4, y.numel() * taps.numel() * 2)
-        sums.setdefault(form, [0.0, 0.0, 0.0])
-        sums[form] = [u + v for u, v in zip(sums[form], (t_a, t_lib, b_p))]
-        print(f"ADA {form} {name} {tuple(xp.shape)} -> {tuple(y.shape)}: kernel A {t_a:.4f} ms, "
-              f"cuDNN depthwise {t_lib:.4f} ms, bound {b_p:.4f} ms ({by}) [{smi}]")
-        del xp, y
-    for form, (t_a, t_lib, b_p) in sums.items():
-        print(f"ADA {form} FIR passes, forward, summed: kernel A {t_a:.4f} ms, cuDNN depthwise "
-              f"{t_lib:.4f} ms, bound {b_p:.4f} ms [{smi}]")
-    return kernels
 
 
 def time_training(tr, smi):
@@ -962,7 +1186,7 @@ def time_training(tr, smi):
           f"{both:.2f} ms (R1 about {both - path:.2f} ms); at the default cadence "
           f"(R1 every 16, path every 4) {(12 * plain + 3 * path + both) / 16:.2f} ms/step "
           f"[{smi}]")
-    tags = ("upfirdn2d_kernel", "flr_fwd", "flr_bwd", "flr_db", "gather_kernel", "scatter_kernel",
+    tags = (*FIR_TAGS, "flr_fwd", "flr_bwd", "flr_db", "gather_kernel", "scatter_kernel",
             "gather2_kernel", "scatter2_kernel")
     profile(lambda: tr.train_step(1), f"one ADA-live plain training step (batch 16, {SIZE} px)",
             smi, tags)
@@ -997,8 +1221,8 @@ def time_training(tr, smi):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
-                        help="stop after phase 3c (build and check the kernels and the "
-                             "polyphase resample)")
+                        help="stop after phase 3d (build, check and time the kernels, "
+                             "check the polyphase resample)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a card",
@@ -1043,12 +1267,13 @@ def main(argv=None):
     gen_rng = torch.Generator(dev).manual_seed(SEED)
 
     # 2. build
+    phase("2. build")
     t0 = time.perf_counter()
     logs = _build.build_all()
     t_nvcc = time.perf_counter() - t0
     for name, log in logs.items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        print(f"nvcc {name}: {'; '.join(regs) or 'up to date'}")
+        for line in ptxas_report(log) or ["up to date"]:
+            print(f"nvcc {name}: {line}")
     t0 = time.perf_counter()
     fused_leaky_relu(torch.zeros(1, 1, device=dev), torch.zeros(1, device=dev))
     fused_leaky_relu_backward(torch.zeros(1, 1, device=dev), torch.zeros(1, 1, device=dev))
@@ -1057,49 +1282,13 @@ def main(argv=None):
     print(f"build: nvcc {t_nvcc:.2f} s, triton first launches (forward, backward) "
           f"{t_triton:.2f} s")
 
-    # 3. kernels against their plain versions
+    # 3. kernels against their plain versions: kernel A on every case of
+    # fir_cases, by instance (the training path's backward and double
+    # backward included), then fused bias-LeakyReLU
+    phase("3. kernels against their plain versions")
     ch = _channels(SIZE, CH_MULT)
     k4 = torch.tensor(make_resample_kernel([1, 3, 3, 1]), device=dev)
-    asym = torch.randn(3, 4, generator=gen_rng, device=dev)
-    row5 = torch.randn(1, 5, generator=gen_rng, device=dev)
-    small = (2, 3, 12, 9)
-    cases = [(small, torch.tensor(make_resample_kernel(k), device=dev), up, down, pad)
-             for up, down, pad, k in [
-                 (1, 1, (1, 1), [1, 3, 3, 1]), (1, 1, (1, 1), [1, 2, 1]),
-                 (1, 1, (2, 1), [1, 3, 3, 1]), (2, 1, (2, 1), [1, 3, 3, 1]),
-                 (1, 2, (1, 1), [1, 3, 3, 1]), (2, 1, (1, 0), [1, 2, 1]),
-                 (1, 2, (0, 0), [1, 1]), (1, 1, (-1, 2), [1, 3, 3, 1]),
-                 (3, 2, (2, 2), [1, 3, 3, 1])]]
-    cases += [(small, asym, 1, 1, (1, 2, 0, 1)), (small, asym, 2, 2, (2, 1)),
-              (small, row5, (2, 1), 1, (2, 1, 0, 0))]
-    res = 8
-    while res <= SIZE:
-        cases.append(((16, ch[res], res + 1, res + 1), k4 * 4, 1, 1, (1, 1)))  # G up blur
-        cases.append(((16, 3, res // 2, res // 2), k4 * 4, 2, 1, (2, 1)))  # ToRGB skip
-        res *= 2
-    res = SIZE
-    while res > 4:
-        cases.append(((16, ch[res], res, res), k4, 1, 1, (2, 2)))  # D conv blur
-        cases.append(((16, ch[res], res, res), k4, 1, 1, (1, 1)))  # D skip blur
-        res //= 2
-    err_a = 0.0
-    for shape, taps, up, down, pad in cases:
-        x32 = torch.randn(shape, generator=gen_rng, device=dev)
-        for x in (x32, x32.bfloat16(), x32.contiguous(memory_format=torch.channels_last)):
-            got = upfirdn2d(x, taps, up, down, pad)
-            torch.cuda.synchronize()
-            want = upfirdn2d_plain(x, taps, up, down, pad)
-            check(got.shape == want.shape and got.dtype == want.dtype,
-                  f"upfirdn2d {shape} shape/dtype")
-            err = (got.float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
-            tol = (1e-2 if x.dtype == torch.bfloat16 else 1e-5) * scale
-            check(err <= tol, f"upfirdn2d {shape} up={up} down={down} pad={pad} "
-                              f"{x.dtype}: err {err} > {tol}")
-            if x.dtype == torch.float32:
-                err_a = max(err_a, err)
-    print(f"upfirdn2d: {len(cases)} shapes x (fp32, bf16, channels-last) match plain; "
-          f"max abs err fp32 {err_a:.3e} (tol 1e-5 x max|out|; bf16 1e-2 x max|out|)")
+    fir_errs, err_a, err_fir_bwd = check_fir(dev, gen_rng, fir_cases(dev, ch, k4))
 
     flr_shapes = [(16, STYLE_DIM), (16, ch[4])]
     flr_shapes += [(16, ch[r], r, r) for r in [2**j for j in range(2, int(math.log2(SIZE)) + 1)]]
@@ -1123,18 +1312,27 @@ def main(argv=None):
           f"max abs err fp32 {err_b:.3e} (tol 1e-6 x max(1, max|out|); bf16 1 ulp)")
 
     # 3b. the training path's kernels against their plain versions
+    phase("3b. the training kernels against their plain versions")
     rng_b = torch.Generator(dev).manual_seed(SEED + 10)
-    errs = {"flr_bwd": check_act_backward(dev, rng_b, ch),
-            "fir_bwd": check_fir_backward(dev, rng_b, ch, k4)}
+    errs = {"flr_bwd": check_act_backward(dev, rng_b, ch), "fir_bwd": err_fir_bwd}
     errs["gather"], errs["scatter"] = check_warp(dev, rng_b)
     # 3c. the polyphase ADA kernels, and the resample they serve
+    phase("3c. the polyphase kernels")
     errs["gather2"], errs["scatter2"] = check_warp2(dev, rng_b)
     check_polyphase_resample(dev, rng_b)
+    # 3d. kernel A's instances against cuDNN, and the two-phase warp pair
+    # beside the interleaved gather and grid_sample
+    phase("3d. kernel A's instances against cuDNN; the two-phase warp")
+    fir_kernels = time_fir_instances(dev, rng_b, ch, k4, smi)
+    for inst, k in fir_kernels.items():
+        k["max_abs_err"] = fir_errs[inst]
+    warp2_kernels = time_warp2(dev, rng_b, smi, errs)
     if args.kernels_only:
         print(smi)
         return 0
 
     # 4. the serving slice at full width
+    phase("4. serving")
     work = ROOT / "diagan_tpu_torch" / "build" / "chip_smoke"
     samples = ROOT / "chiprun_out" / "chip_smoke_samples"
     shutil.rmtree(work, ignore_errors=True)
@@ -1159,6 +1357,7 @@ def main(argv=None):
                           "--seed", str(SEED)])
     t_gen = time.perf_counter() - t0
     launches_gen = dict(_build.LAUNCHES)
+    fir_gen = fir_launches("cli.generate")
     check(imgs.shape == (32, SIZE, SIZE, 3), f"generate shape {imgs.shape}")
     check(bool(np.isfinite(imgs).all()), "generate produced non-finite values")
     check(all(launches_gen[k] > 0 for k in FORWARD_KERNELS), f"generate launches {launches_gen}")
@@ -1180,6 +1379,7 @@ def main(argv=None):
     accepted = drs.generate_images(128)
     t_drs = time.perf_counter() - t0
     launches_drs = dict(_build.LAUNCHES)
+    fir_drs = fir_launches("DRS")
     check(accepted.shape == (128, SIZE, SIZE, 3), f"DRS shape {accepted.shape}")
     check(bool(np.isfinite(accepted).all()), "DRS produced non-finite values")
     check(all(launches_drs[k] > 0 for k in FORWARD_KERNELS), f"DRS launches {launches_drs}")
@@ -1221,6 +1421,7 @@ def main(argv=None):
     print(f"launches per forward at {SIZE} px: G {per_g}, D {per_d}")
 
     # 5. timings at the real shapes
+    phase("5. serving timings")
     kernels = []
     xa = torch.randn((16, ch[SIZE], SIZE + 1, SIZE + 1), generator=gen_rng, device=dev)
     taps = k4 * 4
@@ -1242,14 +1443,6 @@ def main(argv=None):
             xa, w_dw, padding=1, groups=xa.shape[1])),
         "shape": f"{tuple(xa.shape)} fp32 pad (1,1) 4x4 taps (G upsample blur at {SIZE} px)",
     })
-    xs = torch.randn((16, 3, SIZE // 2, SIZE // 2), generator=gen_rng, device=dev)
-    ys = upfirdn2d(xs, taps, up=2, pad=(2, 1))
-    b_s, by_s = bound((xs.numel() + ys.numel()) * 4, ys.numel() * 4 * 2)
-    print(f"upfirdn2d ToRGB skip {tuple(xs.shape)} up=2: "
-          f"{cuda_ms(lambda: upfirdn2d(xs, taps, up=2, pad=(2, 1))):.4f} ms, plain "
-          f"{cuda_ms(lambda: upfirdn2d_plain(xs, taps, up=2, pad=(2, 1)), iters=3):.4f} ms, "
-          f"bound {b_s:.4f} ms ({by_s}) [{smi}]")
-
     xb = torch.randn((16, ch[SIZE], SIZE, SIZE), generator=gen_rng, device=dev)
     bb = torch.randn(ch[SIZE], generator=gen_rng, device=dev)
     b_b, by_b = bound(2 * xb.numel() * 4 + bb.numel() * 4, xb.numel() * 3)
@@ -1279,25 +1472,40 @@ def main(argv=None):
     print(f"DRS batch 32: {128 / t_drs:.2f} accepted samples/s, acceptance {acc_rate:.4f} "
           f"[{smi}]")
     profile(lambda: disc_fn(gen_fn(z32)), f"one proposal batch ({z32.shape[0]} images, G + D)",
-            smi, ("upfirdn2d_kernel", "flr_fwd"))
+            smi, (*FIR_TAGS, "flr_fwd"))
 
     # 6. the training path at full width, through its CLIs
-    tr1, launches_train = train_path(dev, smi, work / "train")
+    phase("6. training paths")
+    tr1, launches_train, fir_train = train_path(dev, smi, work / "train")
     # 6b. one training step's gradients, card against CPU
+    phase("6b. gradients, card against CPU")
     grads_card_vs_cpu(dev, work / "grads")
 
     # 7. timings of the training path
+    phase("7. training timings")
     total = {k: launches_gen[k] + launches_drs[k] + sum(run[k] for run in launches_train.values())
              for k in launches_gen}
     for k in kernels:
         k["launches"] = total[k["name"]]
     kernels += time_new_kernels(dev, rng_b, ch, k4, smi, total, errs)
-    kernels += time_polyphase(dev, rng_b, smi, total, errs)
+    for k in warp2_kernels:
+        k["launches"] = total[k["name"]]
+    kernels += warp2_kernels
+    fir_total = {inst: fir_gen[inst] + fir_drs[inst] + sum(run[inst] for run in fir_train.values())
+                 for inst in fir_gen}
+    for inst, k in fir_kernels.items():
+        k["launches"] = fir_total[inst]
+    kernels += list(fir_kernels.values())
+    time_polyphase(dev, rng_b, smi)
+    phase("7b. training steps")
     time_training(tr1, smi)
     print(f"launches on the main paths: serving {launches_gen} + {launches_drs}; "
           f"training {launches_train}")
+    print(f"kernel A launches by instance on the main paths: serving {fir_gen} + {fir_drs}; "
+          f"training {fir_train}; in all {fir_total}")
 
     shutil.rmtree(work, ignore_errors=True)
+    phase("done")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,9 +27,14 @@
 // loads and 1 store; the adjoints must write all of dx2 (or both planes,
 // N*C*S2*S2 floats in all) once, and their atomics land in L2.
 // Design: one thread per output pixel of one image walks the C channel
-// planes, so the coordinates and weights are computed once per pixel; the
-// two-phase kernels enumerate the pixels quarter-grid-major (a, b, uy, ux),
-// so neighbouring threads store to neighbouring addresses. All four share
+// planes, so the coordinates and weights are computed once per pixel. The
+// two-phase gather numbers its threads by output row and column, as the
+// interleaved gather does, so a warp's 32 lanes take 32 neighbouring output
+// columns and read source columns as locally as that gather's warps; within
+// each run of 32 columns the lanes are ordered parity first (lanes 0-15 the
+// even columns, 16-31 the odd ones), so each half-warp stores 16
+// neighbouring words of one quarter grid. The two-phase adjoint enumerates
+// the pixels quarter-grid-major (a, b, uy, ux). All four share
 // tap(), whose coordinates use __fmul_rn / __fadd_rn in the order of the
 // plain versions (ops/warp.py: affine_gather_plain, ops/ada_phase.py:
 // affine_gather2_plain), which rules out FMA contraction: the clamp, floor
@@ -134,7 +139,7 @@ __device__ __forceinline__ T* phase_row(T* v0, T* v1, long long base, int y, int
   return (y & 1 ? v1 : v0) + base + (long long)(y >> 1) * S2;
 }
 
-// grid: (ceil(4 * h2 * h2 / THREADS), N), h2 = win / 2; v0, v1 (N, C, S2/2,
+// grid: (ceil(win * win / THREADS), N), h2 = win / 2; v0, v1 (N, C, S2/2,
 // S2); out (4, N, C, h2, h2), quarter grid a * 2 + b first.
 __global__ void __launch_bounds__(THREADS)
 gather2_kernel(const float* __restrict__ v0, const float* __restrict__ v1,
@@ -143,9 +148,14 @@ gather2_kernel(const float* __restrict__ v0, const float* __restrict__ v1,
   const int h2 = win / 2, qplane = h2 * h2;
   const int p = blockIdx.x * THREADS + threadIdx.x;
   const int n = blockIdx.y;
-  if (p >= 4 * qplane) return;
-  const int q = p / qplane, r = p % qplane;  // quarter grid q = a * 2 + b
-  const Tap t = tap(coef + 6 * n, 2 * (r / h2) + (q >> 1), 2 * (r % h2) + (q & 1), S2);
+  if (p >= win * win) return;
+  // output row i; lane l of the run of `wc` columns from c0 takes parity
+  // b = (l >= wc / 2) and column j = 2 * ux + b (wc and win are even)
+  const int i = p / win, c0 = (p % win) & ~31, l = p % win - c0;
+  const int half = min(32, win - c0) >> 1, b = l >= half;
+  const int ux = (c0 >> 1) + l - b * half, uy = i >> 1;
+  const int q = (i & 1) * 2 + b, r = uy * h2 + ux;  // quarter grid q = a * 2 + b
+  const Tap t = tap(coef + 6 * n, i, 2 * ux + b, S2);
   const long long vplane = (long long)(S2 / 2) * S2;
   for (int c = 0; c < C; ++c) {
     const long long base = ((long long)n * C + c) * vplane;

@@ -224,13 +224,20 @@ def _warp_coef(Ginv, h, P):
     return torch.stack([Ginv[:, 1, 1], Ginv[:, 1, 0], cy, Ginv[:, 0, 1], Ginv[:, 0, 0], cx], -1)
 
 
+def _reflect_pad(x, P):
+    """x reflect-padded by P on each side, as contiguous NCHW fp32 whatever
+    x's layout (the NHWC images arrive as a channels-last view), so that
+    every FIR pass takes its family's instance of the upfirdn2d kernel."""
+    return F.pad(x.float().contiguous(), (P, P, P, P), mode="reflect")
+
+
 def _antialiased_resample(x, Ginv, P):
     """The sym6 resample of NCHW x at ONE reflect pad P: pad, 2x up-filter,
     warp, down-filter, crop."""
     n, c, h, w = x.shape
     kyf, kxf, ky, kx = _sym6_taps(x.device)
     coef = _to(_warp_coef(Ginv, h, P).contiguous(), x.device)
-    xp = F.pad(x.float(), (P, P, P, P), mode="reflect")
+    xp = _reflect_pad(x, P)
     x2 = upfirdn2d(xp, kyf, up=(1, 2), pad=(0, 0, PAD_K, PAD_K - 1))
     x2 = upfirdn2d(x2, kxf, up=(2, 1), pad=(PAD_K, PAD_K - 1, 0, 0))
     y = affine_gather(x2, coef, 2 * h + 2 * PAD_K)
@@ -264,7 +271,7 @@ def _polyphase_resample(x, Ginv, P):
     kxf = _sym6_taps(x.device)[1]
     b0, b1, *down = _polyphase_taps(x.device)
     coef = _to(_warp_coef(Ginv, h, P).contiguous(), x.device)
-    xp = F.pad(x.float(), (P, P, P, P), mode="reflect")
+    xp = _reflect_pad(x, P)
     a_buf = upfirdn2d(xp, kxf, up=(2, 1), pad=(PAD_K, PAD_K - 1, 0, 0))
     v0 = upfirdn2d(a_buf, b0, pad=(0, 0, 3, 2))
     v1 = upfirdn2d(a_buf, b1, pad=(0, 0, 2, 3))

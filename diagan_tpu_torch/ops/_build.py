@@ -30,11 +30,15 @@ _loaded: dict[str, ctypes.CDLL] = {}
 LAUNCHES = {"upfirdn2d": 0, "upfirdn2d_backward": 0, "fused_leaky_relu": 0,
             "fused_leaky_relu_backward": 0, "affine_warp_gather": 0, "affine_warp_scatter": 0,
             "affine_warp2_gather": 0, "affine_warp2_scatter": 0}
+# Launches of upfirdn2d (forward and backward together) by kernel instance;
+# ops/upfirdn2d.py enters its FIR_INSTANCES names when it is imported.
+FIR_INSTANCES: dict[str, int] = {}
 
 
 def reset_launches():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FIR_INSTANCES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:

@@ -18,6 +18,12 @@ size. Because that backward is the same differentiable Function, the second
 derivative (R1, path regularisation) follows without more code. Launches made
 from a backward count under "upfirdn2d_backward", the others under
 "upfirdn2d".
+
+The kernel has one instance per shape family of the main paths (4x4 blurs at
+up or down 1 or 2, ADA's 12-tap passes, the polyphase 6-tap and 6x6 passes)
+and a generic one for anything else. `fir_instance` chooses it from the
+arguments alone, so the choice is testable without a card; each launch also
+counts under its instance's name in `_build.FIR_INSTANCES`.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from diagan_tpu_torch.ops import _build
 
 
 def make_resample_kernel(k: Sequence[float]) -> np.ndarray:
@@ -97,32 +105,65 @@ def upfirdn2d_plain(x, kernel, up=1, down=1, pad=(0, 0)):
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# The kernel's instances, in the order of their codes (csrc/upfirdn2d.cu,
+# enum Instance), and the family each takes:
+# (kh, kw, (up_x, up_y), (down_x, down_y)) -> instance name.
+FIR_INSTANCES = ("generic", "fir4x4", "fir4x4_up2", "fir4x4_down2", "fir6x6", "fir6y",
+                 "fir12y_up2", "fir12y_down2", "fir12x_up2", "fir12x_down2")
+_FAMILIES = {
+    (4, 4, (1, 1), (1, 1)): "fir4x4",
+    (4, 4, (2, 2), (1, 1)): "fir4x4_up2",
+    (4, 4, (1, 1), (2, 2)): "fir4x4_down2",
+    (6, 6, (1, 1), (1, 1)): "fir6x6",
+    (6, 1, (1, 1), (1, 1)): "fir6y",
+    (12, 1, (1, 2), (1, 1)): "fir12y_up2",
+    (12, 1, (1, 1), (1, 2)): "fir12y_down2",
+    (1, 12, (2, 1), (1, 1)): "fir12x_up2",
+    (1, 12, (1, 1), (2, 1)): "fir12x_down2",
+}
+_build.FIR_INSTANCES.update(dict.fromkeys(FIR_INSTANCES, 0))
+
+
+def fir_instance(kh, kw, up, down, dtype, layout) -> str:
+    """The kernel instance for taps (kh, kw), `up` and `down` (int or (x, y)),
+    a float32 or bfloat16 `dtype`, and the input's memory `layout`
+    (torch.contiguous_format or torch.channels_last): a family's own
+    instance for contiguous NCHW, "generic" otherwise. Pads do not matter:
+    every instance takes any pad."""
+    (up_x, up_y), (down_x, down_y) = _as_pair(up), _as_pair(down)
+    if layout != torch.contiguous_format or dtype not in _DTYPE_CODE:
+        return "generic"
+    return _FAMILIES.get((kh, kw, (up_x, up_y), (down_x, down_y)), "generic")
+
 
 @functools.cache
 def _forward_fn():
     """The C entry point of csrc/upfirdn2d.cu, built at first use."""
-    from diagan_tpu_torch.ops import _build
-
     fn = _build.load("upfirdn2d").upfirdn2d_forward
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 8
                    + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     return fn
 
 
-def _launch(x, taps, up, down, pad, counter):
-    from diagan_tpu_torch.ops import _build
+def layout(x):
+    """x's memory format as the kernel reads it: torch.contiguous_format,
+    torch.channels_last, or None for any other strides."""
+    if x.is_contiguous():
+        return torch.contiguous_format
+    if x.is_contiguous(memory_format=torch.channels_last):
+        return torch.channels_last
+    return None
 
+
+def _launch(x, taps, up, down, pad, counter):
     (up_x, up_y), (down_x, down_y), (p_x0, p_x1, p_y0, p_y1) = _parse(up, down, pad)
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"upfirdn2d kernel takes float32 or bfloat16, got {x.dtype}")
     if x.ndim != 4:
         raise ValueError(f"upfirdn2d takes (N, C, H, W), got shape {tuple(x.shape)}")
-    if x.is_contiguous():
-        fmt = torch.contiguous_format
-    elif x.is_contiguous(memory_format=torch.channels_last):
-        fmt = torch.channels_last
-    else:
+    fmt = layout(x)
+    if fmt is None:
         raise ValueError("upfirdn2d kernel takes a contiguous NCHW or channels-last tensor")
     if taps.device != x.device or taps.dtype != torch.float32 or not taps.is_contiguous():
         raise ValueError("taps must be a contiguous float32 tensor on x's device")
@@ -134,14 +175,20 @@ def _launch(x, taps, up, down, pad, counter):
         raise ValueError(f"upfirdn2d output would be empty ({oh}x{ow})")
     y = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device, memory_format=fmt)
     sx, sy = x.stride(), y.stride()
+    instance = fir_instance(kh, kw, up, down, x.dtype, fmt)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _forward_fn()(x.data_ptr(), y.data_ptr(), taps.data_ptr(),
-                            _DTYPE_CODE[x.dtype], n, c, h, w, oh, ow, *sx, *sy,
+                            _DTYPE_CODE[x.dtype], FIR_INSTANCES.index(instance),
+                            n, c, h, w, oh, ow, *sx, *sy,
                             kh, kw, up_x, up_y, down_x, down_y, p_x0, p_y0, stream)
+    if err == -1:
+        raise RuntimeError(f"upfirdn2d: instance {instance} does not fit taps ({kh}, {kw}), "
+                           f"up {up}, down {down}, strides {sx} -> {sy}")
     if err != 0:
         raise RuntimeError(f"upfirdn2d kernel launch failed: cudaError {err}")
     _build.LAUNCHES[counter] += 1
+    _build.FIR_INSTANCES[instance] += 1
     return y
 
 

@@ -23,6 +23,10 @@ from diagan_tpu_torch.ops import _build  # noqa: E402
 
 _ASYM = np.random.default_rng(11).standard_normal((3, 4)).astype(np.float32)
 _ROW5 = np.random.default_rng(12).standard_normal((1, 5)).astype(np.float32)
+_K12 = np.random.default_rng(13).standard_normal(12).astype(np.float32)
+_K6 = np.random.default_rng(14).standard_normal(6).astype(np.float32)
+_K66 = np.random.default_rng(15).standard_normal((6, 6)).astype(np.float32)
+_K44 = np.random.default_rng(16).standard_normal((4, 4)).astype(np.float32)
 
 # (up, down, pad, taps): the tests/test_ops.py configs (1-D tap lists), then
 # kernels that are not symmetric, so a missing flip of the taps cannot pass:
@@ -42,13 +46,27 @@ CONFIGS = [
     ((2, 1), 1, (2, 1, 0, 0), _ROW5),
     ((2, 1), (1, 2), (3, 1, 1, 0), _ROW5.T),
 ]
+# the shape families of the kernel's own instances (ops/upfirdn2d.py
+# fir_instance) that CONFIGS leaves out, with taps that are not symmetric:
+# ADA's 12-tap passes at up 2 and down 2 on each axis, the polyphase 6-tap y
+# and 6x6 stride-1 passes, and the 4x4 up 2 / down 2 pair at other pads
+FAMILY_CONFIGS = [
+    ((1, 2), 1, (0, 0, 6, 5), _K12.reshape(12, 1)),
+    (1, (1, 2), (0, 0, 5, 5), _K12.reshape(12, 1)),
+    ((2, 1), 1, (6, 5, 0, 0), _K12.reshape(1, 12)),
+    (1, (2, 1), (5, 5, 0, 0), _K12.reshape(1, 12)),
+    (1, 1, (0, 0, 3, 2), _K6.reshape(6, 1)),
+    (1, 1, (3, 2, 2, 3), _K66),
+    (2, 1, (1, 2), _K44),
+    (1, 2, (2, 1), _K44),
+]
 
 
 def _taps(k):
     return k if isinstance(k, np.ndarray) else make_resample_kernel(k)
 
 
-@pytest.mark.parametrize("up,down,pad,k", CONFIGS)
+@pytest.mark.parametrize("up,down,pad,k", CONFIGS + FAMILY_CONFIGS)
 def test_upfirdn2d_plain_matches_pallas_and_oracle(up, down, pad, k):
     rng = np.random.default_rng(7)
     x = rng.standard_normal((2, 12, 9, 3)).astype(np.float32)

@@ -9,7 +9,7 @@ kernels they replace, run in interpret mode, and against JAX autodiff:
     `fused_leaky_relu`, at 1e-6;
   - upfirdn2d gradients and the gradient of a gradient norm against
     jax.grad through `upfirdn2d_pallas(..., interpret=True)`, on the configs
-    of test_torch_port_ops.py, at 1e-5;
+    and the kernel's shape families of test_torch_port_ops.py, at 1e-5;
   - the affine warp and its adjoint against `affine_gather` (Pallas in
     interpret mode on three cases, XLA on all six), at the tolerances of
     tests/test_warp_pallas.py.
@@ -27,7 +27,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
-from test_torch_port_ops import CONFIGS, _taps  # noqa: E402
+from test_torch_port_ops import CONFIGS, FAMILY_CONFIGS, _taps  # noqa: E402
 
 from diagan_tpu.ops import fused_act  # noqa: E402
 from diagan_tpu.ops.fir_pallas import upfirdn2d_pallas  # noqa: E402
@@ -110,7 +110,7 @@ def test_fused_act_backward_extra_term_and_no_sums():
 
 
 # --- upfirdn2d backward -----------------------------------------------------
-@pytest.mark.parametrize("up,down,pad,k", CONFIGS)
+@pytest.mark.parametrize("up,down,pad,k", CONFIGS + FAMILY_CONFIGS)
 def test_upfirdn2d_grads_match_pallas(up, down, pad, k):
     """The gradient of <up(x), w> and the gradient of the squared norm of the
     gradient of <tanh(up(x)), w>: the second runs the backward's backward."""
