@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (diagan_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--kernels-only]
+    python3 chip_smoke.py [--kernels-only] [--against ROOT]
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. card name and power limit (nvidia-smi); TF32 off for convs and matmuls;
@@ -17,8 +17,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      shapes in fp32 and bf16;
   3b. the training kernels against their plain versions: the fused-act
      backward (dx, db, double backward) at every activation shape, fp32 and
-     bf16; ADA's warp gather and its adjoint at each bucket's S2, six
-     geometries and one batch of ADA draws;
+     bf16; ADA's warp gather and its adjoint at each bucket's S2, eight
+     geometries (zoom_out beyond the gather's shared-memory box, zoom_in
+     beyond the adjoint's cell window) and one batch of ADA draws, with the
+     tile paths they take, and rows that are not a multiple of 4 floats;
+     one adjoint call's device events (no memset) and its tile pass's SASS
+     (no global atomic);
   3c. the polyphase ADA kernels against their plain versions: the two-phase
      warp gather and its adjoint at each bucket's S2, the same geometries and
      draws; then the whole polyphase resample at 256 px, batch 16, against
@@ -26,8 +30,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   3d. each kernel A instance at its largest main-path shape against one
      cuDNN depthwise call and its bytes bound (device time of CUDA-graph
      replays, in turns), every ADA pass of both forms likewise; the
-     two-phase warp pair, and its gather in turns with the interleaved
-     gather and grid_sample (--kernels-only stops here);
+     interleaved warp pair in turns with grid_sample and its backward
+     (device time, and eager), with --against ROOT another checkout's pair
+     (e.g. the parent commit's) in the same turns; the two-phase warp pair,
+     and its gather in turns with the interleaved gather and grid_sample
+     (--kernels-only stops here);
   4. the serving slice at full width (StyleGAN2-256, channel_multiplier 2,
      style_dim 512, n_mlp 8, random weights from a seed): save a checkpoint,
      run cli.generate, draw DRS samples, with the launch counts (per kernel,
@@ -203,6 +210,13 @@ WARP_CASES = {
     "shrink": [0.4, 0.02, 40.0, -0.02, 0.4, 40.0],
     "clipped": [0.8, 0.1, -3.0, -0.2, 1.1, 120.0],
     "fractional": [1.01, -0.3, 17.25, 0.3, 0.97, 33.75],
+    # 2.8x at 45 degrees (tests/test_torch_port_train_ops.py): beyond the
+    # gather's shared-memory box, so its tiles read x2 from global
+    "zoom_out": [2.8 * math.cos(math.pi / 4), -2.8 * math.sin(math.pi / 4), 63.5,
+                 2.8 * math.sin(math.pi / 4), 2.8 * math.cos(math.pi / 4), -21.5],
+    # 0.3x at 20 degrees: beyond the adjoint's cell window (its fallback)
+    "zoom_in": [0.3 * math.cos(0.35), -0.3 * math.sin(0.35), 50.0,
+                0.3 * math.sin(0.35), 0.3 * math.cos(0.35), 45.0],
 }
 
 
@@ -488,9 +502,48 @@ def warp_coefs(P, dev):
     return {name: coef.contiguous() for name, coef in coefs.items()}
 
 
+def warp_paths(coef, win, s2):
+    """Which paths of the interleaved pair a call takes, from the tile
+    geometry's plain mirrors (ops/warp.py): gather tiles staged in shared
+    memory / reading x2 from global; adjoint tiles written as zeros / on the
+    cell path / on the shared-atomic fallback; images that need the
+    clamped-output pass."""
+    from diagan_tpu_torch.ops.warp import _gather_tile_boxes, _scatter_tile_candidates
+
+    _, fits = _gather_tile_boxes(coef, win, s2)
+    cand, cells, clamp = _scatter_tile_candidates(coef, win, s2)
+    empty = (cand[..., 0] > cand[..., 1]) | (cand[..., 2] > cand[..., 3])
+    return {"gather tiled": int(fits.sum()), "gather global": int((~fits).sum()),
+            "adjoint zero": int(empty.sum()), "adjoint cells": int(cells.sum()),
+            "adjoint fallback": int((~empty & ~cells).sum()), "clamped images": int(clamp.sum())}
+
+
+def adjoint_tol(name, want, plain, g, coef, s2):
+    """The adjoints' tolerance against their plain versions (one tensor, or
+    a tuple for the two-phase planes): atomics add in a run-dependent order,
+    2e-5 + 1e-4 x |want|, and 2e-4 + 1e-4 x |want| on clipped, whose clamped
+    coordinates pile hundreds of terms onto the edge pixels. zoom_out's grid
+    spans ~2070 source pixels, so its edge and corner pixels collect up to
+    ~10^5 terms that largely cancel; a sum of K terms in another order moves
+    by up to ~K ulps of the sum of their magnitudes, so it also gets 16 ulps
+    (2^-20) of that sum: the plain adjoint of |g|."""
+    atol = 2e-4 if name == "clipped" else 2e-5
+    single = isinstance(want, torch.Tensor)
+    tols = [atol + 1e-4 * w.abs() for w in ((want,) if single else want)]
+    if name == "zoom_out":
+        mags = plain(g.abs(), coef, s2)
+        tols = [t + 2.0**-20 * m for t, m in zip(tols, (mags,) if single else mags)]
+    return tols[0] if single else tols
+
+
 def check_warp(dev, rng):
     """The warp gather and its adjoint against the plain versions at each
-    ADA bucket's S2 and win: six geometries and one batch of ADA draws."""
+    ADA bucket's S2 and win: eight geometries and one batch of ADA draws.
+    Between them they take every path of both kernels (the gather's shared
+    and global paths; the adjoint's zero tiles, cell path, shared-atomic
+    fallback and clamped-output pass), counted from the tile geometry. Where
+    no output is clamped the adjoint uses no atomic at all, and two launches
+    must give the same bits."""
     from diagan_tpu_torch.ops import (
         affine_gather,
         affine_gather_plain,
@@ -501,6 +554,7 @@ def check_warp(dev, rng):
     win = ada_win()
     err_g = err_s = 0.0
     exact = True
+    paths, same = {}, 0
     for P in ada_pads():
         s2 = ada_s2(P)
         x2 = torch.randn((16, 3, s2, s2), generator=rng, device=dev)
@@ -512,19 +566,117 @@ def check_warp(dev, rng):
             e = max_err(out, want)
             exact = exact and e == 0.0
             check(e <= 1e-6 * want.abs().max().item(), f"affine gather {name} s2={s2}: err {e}")
-            # atomics add in a run-dependent order; clamped coordinates pile
-            # hundreds of terms onto the edge pixels
-            atol = 2e-4 if name == "clipped" else 2e-5
             diff = (dx2 - want_dx2).abs()
-            check(bool((diff <= atol + 1e-4 * want_dx2.abs()).all()),
+            tol = adjoint_tol(name, want_dx2, affine_scatter_plain, g, coef, s2)
+            check(bool((diff <= tol).all()),
                   f"affine scatter {name} s2={s2}: err {diff.max().item()}")
             err_g, err_s = max(err_g, e), max(err_s, diff.max().item())
+            used = warp_paths(coef, win, s2)
+            if not used["clamped images"] and not used["adjoint fallback"]:
+                check(torch.equal(affine_scatter(g, coef, s2), dx2),
+                      f"affine scatter {name} s2={s2}: two launches differ")
+                same += 1
+            for k, v in used.items():
+                paths.setdefault(k, {}).setdefault(name, 0)
+                paths[k][name] += v
         del x2, g
     print(f"affine warp: S2 {[ada_s2(P) for P in ada_pads()]}, win {win}, "
           f"{len(WARP_CASES)} geometries + ADA draws at p=1: gather max abs err {err_g:.3e} "
           f"({'bit-exact' if exact else 'not bit-exact'}; tol 1e-6 x max|out|), adjoint "
-          f"{err_s:.3e} (tol 2e-5, clipped 2e-4, + 1e-4 x |want|)")
+          f"{err_s:.3e} (adjoint_tol: 2e-5, clipped 2e-4, + 1e-4 x |want|; zoom_out + 2^-20 x "
+          f"the sum of |terms|); adjoint bit-identical over two launches on {same} cases "
+          f"with no clamped output and no fallback tile")
+    # a buffer whose rows are not a multiple of 4 floats: the gather's 4-byte
+    # copies and the adjoint's scalar stores
+    s2 = ada_s2(ada_pads()[-1]) - 2
+    x2 = torch.randn((16, 3, s2, s2), generator=rng, device=dev)
+    g = torch.randn((16, 3, win, win), generator=rng, device=dev)
+    for name in ("rot_scale", "ada_p1"):
+        coef = warp_coefs(ada_pads()[-1], dev)[name]
+        out, dx2 = affine_gather(x2, coef, win), affine_scatter(g, coef, s2)
+        torch.cuda.synchronize()
+        want, want_dx2 = affine_gather_plain(x2, coef, win), affine_scatter_plain(g, coef, s2)
+        check(torch.equal(out, want), f"affine gather {name} s2={s2}: not bit-exact")
+        diff = (dx2 - want_dx2).abs()
+        check(bool((diff <= adjoint_tol(name, want_dx2, None, g, coef, s2)).all()),
+              f"affine scatter {name} s2={s2}: err {diff.max().item()}")
+        err_s = max(err_s, diff.max().item())
+    del x2, g
+    print(f"  S2 {s2} (rows not a multiple of 4 floats), rot_scale and ADA draws: gather "
+          f"bit-exact, adjoint within adjoint_tol")
+    for k, by_case in paths.items():
+        print(f"  {k}: " + ", ".join(f"{c} {v}" for c, v in by_case.items() if v))
+        check(sum(by_case.values()) > 0, f"no call of check_warp took the path '{k}'")
+    check(paths["clamped images"]["clipped"] > 0, "clipped took no clamped-output pass")
     return err_g, err_s
+
+
+def check_scatter_launches(dev):
+    """One adjoint call at the largest bucket on clipped draws launches the
+    tile pass and the clamped-output pass and nothing else: no memset (the
+    tile pass writes all of dx2). Read from torch.profiler's device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from diagan_tpu_torch.ops import affine_scatter
+
+    P = ada_pads()[-1]
+    s2, win = ada_s2(P), ada_win()
+    coef = warp_coefs(P, dev)["clipped"]
+    g = torch.randn((16, 3, win, win), device=dev)
+    affine_scatter(g, coef, s2)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        affine_scatter(g, coef, s2)
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+    print(f"device events of one affine_scatter call: {names}")
+    if not names:
+        print("  the profiler recorded no device events: memset check not measured")
+        return
+    check(not any("memset" in n.lower() for n in names), f"affine_scatter issued a memset: {names}")
+    check(any(re.search(r"\bscatter_kernel\b", n) for n in names) and
+          any("scatter_clamped_kernel" in n for n in names),
+          f"affine_scatter did not launch its two passes: {names}")
+
+
+WARP_KERNELS = ("gather_kernel", "scatter_kernel", "scatter_clamped_kernel", "gather2_kernel",
+                "scatter2_kernel")  # csrc/affine_warp.cu's kernels
+
+
+def sass_atomics(lib_path):
+    """Atomic instructions in each warp kernel of a built library, from its
+    SASS (cuobjdump): {kernel: {opcode: count}}. RED(G), ATOMG and ATOM
+    (generic) reach global memory; ATOMS is shared memory."""
+    from diagan_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    found, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:  # the mangled name holds "<length><name>E"
+            name = next((k for k in WARP_KERNELS if f"{len(k)}{k}E" in m.group(1)), m.group(1))
+            found[name] = {}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?((?:REDG?|ATOM[GS]?)\b[.\w]*)", ln)
+        if m and name:
+            found[name][m.group(1)] = found[name].get(m.group(1), 0) + 1
+    return found
+
+
+def check_atomics():
+    """The interleaved adjoint's tile pass (scatter_kernel) has no global
+    atomic in its SASS."""
+    from diagan_tpu_torch.ops import _build
+
+    found = sass_atomics(_build._target("affine_warp"))
+    for name, ops in sorted(found.items()):
+        print(f"SASS atomics, {name[:60]}: {ops or 'none'}")
+    check("scatter_kernel" in found, f"scatter_kernel not found in the SASS: {sorted(found)}")
+    glob = {op: k for op, k in found["scatter_kernel"].items() if not op.startswith("ATOMS")}
+    check(not glob, f"scatter_kernel has global atomics: {glob}")
 
 
 def check_warp2(dev, rng):
@@ -555,11 +707,10 @@ def check_warp2(dev, rng):
             exact = exact and e == 0.0
             scale = max(b.abs().max().item() for b in want)
             check(e <= 1e-6 * scale, f"affine gather2 {name} s2={s2}: err {e}")
-            # as check_warp: atomics in a run-dependent order
-            atol = 2e-4 if name == "clipped" else 2e-5
-            for got, w in zip(dv, want_dv):
+            tols = adjoint_tol(name, want_dv, affine_scatter2_plain, g, coef, s2)
+            for got, w, tol in zip(dv, want_dv, tols):
                 diff = (got - w).abs()
-                check(bool((diff <= atol + 1e-4 * w.abs()).all()),
+                check(bool((diff <= tol).all()),
                       f"affine scatter2 {name} s2={s2}: err {diff.max().item()}")
                 err_s = max(err_s, diff.max().item())
             err_g = max(err_g, e)
@@ -568,7 +719,7 @@ def check_warp2(dev, rng):
     print(f"two-phase affine warp: S2 {[ada_s2(P) for P in ada_pads()]}, win {win}, "
           f"{len(WARP_CASES)} geometries + ADA draws at p=1: gather2 max abs err {err_g:.3e} "
           f"({'bit-exact' if exact else 'not bit-exact'}; tol 1e-6 x max|out|), adjoint "
-          f"{err_s:.3e} (tol 2e-5, clipped 2e-4, + 1e-4 x |want|)")
+          f"{err_s:.3e} (adjoint_tol)")
     return err_g, err_s
 
 
@@ -797,16 +948,11 @@ def time_new_kernels(dev, rng, ch, k4, smi, launches, errs):
     import torch.nn.functional as F
 
     from diagan_tpu_torch.ops import (
-        affine_gather,
-        affine_gather_plain,
-        affine_scatter,
-        affine_scatter_plain,
         fused_leaky_relu_backward,
         fused_leaky_relu_backward_plain,
         upfirdn2d,
         upfirdn2d_plain,
     )
-    from diagan_tpu_torch.ops.warp import _taps as warp_taps
 
     kernels = []
     g = torch.randn((16, ch[SIZE], SIZE, SIZE), generator=rng, device=dev)
@@ -856,61 +1002,157 @@ def time_new_kernels(dev, rng, ch, k4, smi, launches, errs):
     })
     del x, out, out_p, gy, gx
 
-    # the warp pair at the largest bucket, on one batch of ADA draws at p = 1
+    for k in kernels:
+        print(f"{k['name']} at {k['shape']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
+              f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms ({k['bound_by']}) "
+              f"[{smi}]")
+    return kernels
+
+
+def in_turns(fns):
+    """Device time (graph_ms) of each of fns {name: fn}, in turns: forward
+    through the names, then back. {name: (first, second)}."""
+    ms = {}
+    for name in [*fns, *reversed(fns)]:
+        ms.setdefault(name, []).append(graph_ms(fns[name]))
+    return {name: tuple(v) for name, v in ms.items()}
+
+
+def against_warp(root):
+    """The interleaved warp pair of another checkout (its
+    diagan_tpu_torch/csrc/affine_warp.cu, built here with the port's nvcc
+    flags), for timing against this one on the same card: (gather, scatter)
+    with the arguments and outputs of affine_gather and affine_scatter."""
+    import ctypes
+
+    from diagan_tpu_torch.ops import _build
+
+    src = Path(root) / "diagan_tpu_torch" / "csrc" / "affine_warp.cu"
+    lib_path = _build.BUILD_DIR / "against_affine_warp.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path), str(src)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+
+    def bind(name):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+        def launch(src_t, coef, out, s2, win):
+            n, c = src_t.shape[:2]
+            err = fn(src_t.data_ptr(), coef.data_ptr(), out.data_ptr(), n, c, s2, win,
+                     torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"{root}: {name} launch failed, cudaError {err}")
+            return out
+        return launch
+
+    gather, scatter = bind("affine_warp_gather"), bind("affine_warp_scatter")
+
+    def gather_fn(x2, coef, win):
+        n, c, s2, _ = x2.shape
+        return gather(x2, coef, torch.empty((n, c, win, win), device=x2.device), s2, win)
+
+    def scatter_fn(g, coef, s2):
+        n, c, win, _ = g.shape
+        return scatter(g, coef, torch.empty((n, c, s2, s2), device=g.device), s2, win)
+
+    return gather_fn, scatter_fn
+
+
+def time_warp(dev, rng, smi, errs, against=None):
+    """The interleaved warp pair at the largest bucket on one batch of ADA
+    draws at p = 1 (the kernels-line entries, without launches): each kernel
+    in turns with grid_sample and its backward as device time of CUDA-graph
+    replays (graph_ms), and eagerly (cuda_ms); with `against` (the root of
+    another checkout, e.g. the parent commit's tree), that checkout's
+    kernels too, in the same turns."""
+    import torch.nn.functional as F
+
+    from diagan_tpu_torch.ops import (
+        affine_gather,
+        affine_gather_plain,
+        affine_scatter,
+        affine_scatter_plain,
+    )
+    from diagan_tpu_torch.ops.warp import _taps as warp_taps
+
     win = ada_win()
     P = ada_pads()[-1]
-    s2 = 2 * (SIZE + 2 * P)
+    s2 = ada_s2(P)
     coef = ada_coef(P, SEED + 1).to(dev)
     x2 = torch.randn((16, 3, s2, s2), generator=rng, device=dev)
     gw = torch.randn((16, 3, win, win), generator=rng, device=dev)
     index, _ = warp_taps(coef, win, s2)
     touched = sum(torch.unique(torch.stack([i[k] for i in index])).numel() for k in range(16))
+    del index
     idx = torch.arange(win, dtype=torch.float32, device=dev)
     ii, jj = idx[:, None], idx[None, :]
     c = coef[:, :, None, None]
     qy, qx = c[:, 0] * ii + c[:, 1] * jj + c[:, 2], c[:, 3] * ii + c[:, 4] * jj + c[:, 5]
     grid = torch.stack([2 * qx / (s2 - 1) - 1, 2 * qy / (s2 - 1) - 1], -1)
 
-    def lib_gather(x):
-        return F.grid_sample(x, grid, mode="bilinear", padding_mode="border", align_corners=True)
+    def lib_gather():
+        return F.grid_sample(x2, grid, mode="bilinear", padding_mode="border", align_corners=True)
 
+    def lib_scatter():  # grid_sample's backward as one call: bilinear, border, x2's grad only
+        return torch.ops.aten.grid_sampler_2d_backward(gw, x2, grid, 0, 1, True, [True, False])[0]
+
+    out, dx2 = affine_gather(x2, coef, win), affine_scatter(gw, coef, s2)
     # grid_sample takes normalised coordinates, which round the source point
-    # by about 1e-4 pixel: agreement to 1e-3 x max|x2|
-    check(max_err(lib_gather(x2), affine_gather(x2, coef, win)) <= 1e-3 * x2.abs().max().item(),
+    # by about 1e-4 pixel: agreement to 1e-3 x max|.|
+    check(max_err(lib_gather(), out) <= 1e-3 * x2.abs().max().item(),
           "grid_sample yardstick disagrees with the warp gather")
-    xr = x2.clone().requires_grad_(True)
-    out_lib = lib_gather(xr)
-    dx2 = affine_scatter(gw, coef, s2)
-    check(max_err(torch.autograd.grad(out_lib, xr, gw, retain_graph=True)[0], dx2)
-          <= 1e-3 * dx2.abs().max().item(), "grid_sample backward disagrees with the adjoint")
+    check(max_err(lib_scatter(), dx2) <= 1e-3 * dx2.abs().max().item(),
+          "grid_sample backward disagrees with the adjoint")
+    gathers = {"affine_warp_gather": lambda: affine_gather(x2, coef, win),
+               "grid_sample": lib_gather}
+    scatters = {"affine_warp_scatter": lambda: affine_scatter(gw, coef, s2),
+                "grid_sample backward": lib_scatter}
+    if against:
+        a_gather, a_scatter = against_warp(against)
+        check(torch.equal(a_gather(x2, coef, win), out), f"{against}: gather differs")
+        diff = (a_scatter(gw, coef, s2) - dx2).abs()
+        check(bool((diff <= 2e-5 + 1e-4 * dx2.abs()).all()), f"{against}: adjoint differs")
+        gathers = {f"{against} gather": lambda: a_gather(x2, coef, win), **gathers}
+        scatters = {f"{against} scatter": lambda: a_scatter(gw, coef, s2), **scatters}
+    del out, dx2
     out_bytes, coef_bytes = gw.numel() * 4, coef.numel() * 4
     pix_ops = 16 * win * win * 12  # coordinates and weights, once per pixel
-    b, by = bound(touched * 3 * 4 + out_bytes + coef_bytes, pix_ops + gw.numel() * 9)
-    kernels.append({
-        "name": "affine_warp_gather", "route": "cuda", "source": "diagan_tpu_torch/csrc/affine_warp.cu",
-        "replaces": "diagan_tpu/ops/warp_pallas.py:239",
-        "launches": launches["affine_warp_gather"], "max_abs_err": errs["gather"],
-        "ms": cuda_ms(lambda: affine_gather(x2, coef, win)),
-        "plain_ms": cuda_ms(lambda: affine_gather_plain(x2, coef, win)),
-        "bound_ms": b, "bound_by": by, "library_ms": cuda_ms(lambda: lib_gather(x2)),
-        "shape": f"{tuple(x2.shape)} -> {tuple(gw.shape)} fp32, ADA draws at p=1 "
-                 f"({touched} source pixels touched)",
-    })
-    b, by = bound(out_bytes + x2.numel() * 4 + coef_bytes, pix_ops + gw.numel() * 8)
-    kernels.append({
-        "name": "affine_warp_scatter", "route": "cuda", "source": "diagan_tpu_torch/csrc/affine_warp.cu",
-        "replaces": "diagan_tpu/ops/warp_pallas.py:397",
-        "launches": launches["affine_warp_scatter"], "max_abs_err": errs["scatter"],
-        "ms": cuda_ms(lambda: affine_scatter(gw, coef, s2)),
-        "plain_ms": cuda_ms(lambda: affine_scatter_plain(gw, coef, s2)),
-        "bound_ms": b, "bound_by": by,
-        "library_ms": cuda_ms(lambda: torch.autograd.grad(out_lib, xr, gw, retain_graph=True)),
-        "shape": f"{tuple(gw.shape)} -> {tuple(x2.shape)} fp32, ADA draws at p=1",
-    })
-    for k in kernels:
-        print(f"{k['name']} at {k['shape']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
-              f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms ({k['bound_by']}) "
-              f"[{smi}]")
+    bounds = {"affine_warp_gather": bound(touched * 3 * 4 + out_bytes + coef_bytes,
+                                          pix_ops + gw.numel() * 9),
+              "affine_warp_scatter": bound(out_bytes + x2.numel() * 4 + coef_bytes,
+                                           pix_ops + gw.numel() * 8)}
+    plains = {"affine_warp_gather": lambda: affine_gather_plain(x2, coef, win),
+              "affine_warp_scatter": lambda: affine_scatter_plain(gw, coef, s2)}
+    replaces = {"affine_warp_gather": "diagan_tpu/ops/warp_pallas.py:239",
+                "affine_warp_scatter": "diagan_tpu/ops/warp_pallas.py:397"}
+    shapes = {"affine_warp_gather": f"{tuple(x2.shape)} -> {tuple(gw.shape)} fp32, ADA draws "
+                                    f"at p=1 ({touched} source pixels touched)",
+              "affine_warp_scatter": f"{tuple(gw.shape)} -> {tuple(x2.shape)} fp32, ADA draws "
+                                     f"at p=1"}
+    kernels = []
+    for fns, err in ((gathers, errs["gather"]), (scatters, errs["scatter"])):
+        ms = in_turns(fns)
+        name, lib_name = [k for k in fns if k.startswith("affine_warp")][0], list(fns)[-1]
+        b, by = bounds[name]
+        entry = {
+            "name": name, "route": "cuda", "source": "diagan_tpu_torch/csrc/affine_warp.cu",
+            "replaces": replaces[name], "max_abs_err": err,
+            "ms": sum(ms[name]) / 2, "ms_eager": cuda_ms(fns[name]),
+            "plain_ms": cuda_ms(plains[name], iters=3),
+            "bound_ms": b, "bound_by": by, "library_ms": sum(ms[lib_name]) / 2,
+            "shape": f"{shapes[name]}; ms and library_ms: device time of CUDA-graph replays, "
+                     f"mean of two turns",
+        }
+        if against:
+            entry["against_ms"] = sum(ms[list(fns)[0]]) / 2
+        kernels.append(entry)
+        print(f"{name} at {shapes[name]}, in turns (device time): " + "; ".join(
+            f"{k} {t1:.4f} / {t2:.4f} ms" for k, (t1, t2) in ms.items()) +
+            f"; eager {entry['ms_eager']:.4f} ms, plain {entry['plain_ms']:.4f} ms, bound "
+            f"{b:.4f} ms ({by}), {b / entry['ms']:.2f} of the bound [{smi}]")
+    del x2, gw, grid
     return kernels
 
 
@@ -1012,9 +1254,8 @@ def time_fir_instances(dev, rng, ch, k4, smi):
         check(max_err(lib(xp), y) <= 1e-5 * y.abs().max().item(),
               f"depthwise yardstick disagrees with the {form} {name}")
         inst = fir_instance(*taps.shape, up, down, xp.dtype, torch.contiguous_format)
-        a1, l1, l2, a2 = (graph_ms(f) for f in (lambda: upfirdn2d(xp, taps, up, down, pad),
-                                                lambda: lib(xp), lambda: lib(xp),
-                                                lambda: upfirdn2d(xp, taps, up, down, pad)))
+        ms = in_turns({"a": lambda: upfirdn2d(xp, taps, up, down, pad), "lib": lambda: lib(xp)})
+        (a1, a2), (l1, l2) = ms["a"], ms["lib"]
         t_a, t_lib = (a1 + a2) / 2, (l1 + l2) / 2
         t_eager = cuda_ms(lambda: upfirdn2d(xp, taps, up, down, pad))
         nbytes = (xp.numel() + y.numel()) * 4
@@ -1187,7 +1428,7 @@ def time_training(tr, smi):
           f"(R1 every 16, path every 4) {(12 * plain + 3 * path + both) / 16:.2f} ms/step "
           f"[{smi}]")
     tags = (*FIR_TAGS, "flr_fwd", "flr_bwd", "flr_db", "gather_kernel", "scatter_kernel",
-            "gather2_kernel", "scatter2_kernel")
+            "scatter_clamped_kernel", "gather2_kernel", "scatter2_kernel", "Memset")
     profile(lambda: tr.train_step(1), f"one ADA-live plain training step (batch 16, {SIZE} px)",
             smi, tags)
 
@@ -1223,6 +1464,9 @@ def main(argv=None):
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after phase 3d (build, check and time the kernels, "
                              "check the polyphase resample)")
+    parser.add_argument("--against", metavar="ROOT",
+                        help="also time the interleaved warp pair of the checkout at ROOT "
+                             "(e.g. the parent commit's tree) in turns with this one")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a card",
@@ -1316,17 +1560,20 @@ def main(argv=None):
     rng_b = torch.Generator(dev).manual_seed(SEED + 10)
     errs = {"flr_bwd": check_act_backward(dev, rng_b, ch), "fir_bwd": err_fir_bwd}
     errs["gather"], errs["scatter"] = check_warp(dev, rng_b)
+    check_scatter_launches(dev)
+    check_atomics()
     # 3c. the polyphase ADA kernels, and the resample they serve
     phase("3c. the polyphase kernels")
     errs["gather2"], errs["scatter2"] = check_warp2(dev, rng_b)
     check_polyphase_resample(dev, rng_b)
     # 3d. kernel A's instances against cuDNN, and the two-phase warp pair
     # beside the interleaved gather and grid_sample
-    phase("3d. kernel A's instances against cuDNN; the two-phase warp")
+    phase("3d. kernel A's instances against cuDNN; the warp pairs")
     fir_kernels = time_fir_instances(dev, rng_b, ch, k4, smi)
     for inst, k in fir_kernels.items():
         k["max_abs_err"] = fir_errs[inst]
-    warp2_kernels = time_warp2(dev, rng_b, smi, errs)
+    warp_kernels = time_warp(dev, rng_b, smi, errs, args.against)
+    warp_kernels += time_warp2(dev, rng_b, smi, errs)
     if args.kernels_only:
         print(smi)
         return 0
@@ -1488,9 +1735,9 @@ def main(argv=None):
     for k in kernels:
         k["launches"] = total[k["name"]]
     kernels += time_new_kernels(dev, rng_b, ch, k4, smi, total, errs)
-    for k in warp2_kernels:
+    for k in warp_kernels:
         k["launches"] = total[k["name"]]
-    kernels += warp2_kernels
+    kernels += warp_kernels
     fir_total = {inst: fir_gen[inst] + fir_drs[inst] + sum(run[inst] for run in fir_train.values())
                  for inst in fir_gen}
     for inst, k in fir_kernels.items():

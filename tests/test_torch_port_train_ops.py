@@ -11,8 +11,8 @@ kernels they replace, run in interpret mode, and against JAX autodiff:
     jax.grad through `upfirdn2d_pallas(..., interpret=True)`, on the configs
     and the kernel's shape families of test_torch_port_ops.py, at 1e-5;
   - the affine warp and its adjoint against `affine_gather` (Pallas in
-    interpret mode on three cases, XLA on all six), at the tolerances of
-    tests/test_warp_pallas.py.
+    interpret mode on three cases, XLA on every case of WARP_CASES), at the
+    tolerances of tests/test_warp_pallas.py.
 
 Inputs come from numpy with fixed seeds; layouts go NHWC <-> NCHW at the
 boundary.
@@ -164,6 +164,15 @@ WARP_CASES = {  # tests/test_warp_pallas.py; rows [ay, by, cy, ax, bx, cx]
     "shrink": [0.4, 0.02, 40.0, -0.02, 0.4, 40.0],
     "clipped": [0.8, 0.1, -3.0, -0.2, 1.1, 120.0],
     "fractional": [1.01, -0.3, 17.25, 0.3, 0.97, 33.75],
+    # 2.8x at 45 degrees, centred: beyond the TPU window (so not in the
+    # Pallas test) and beyond the CUDA gather's shared-memory box; the grid's
+    # four tips clamp
+    "zoom_out": [2.8 * np.cos(np.pi / 4), -2.8 * np.sin(np.pi / 4), 63.5,
+                 2.8 * np.sin(np.pi / 4), 2.8 * np.cos(np.pi / 4), -21.5],
+    # 0.3x at 20 degrees: each source cell holds ~11 outputs, beyond the CUDA
+    # adjoint's cell window, so its tiles take the shared-atomic fallback
+    "zoom_in": [0.3 * np.cos(0.35), -0.3 * np.sin(0.35), 50.0,
+                0.3 * np.sin(0.35), 0.3 * np.cos(0.35), 45.0],
 }
 
 
