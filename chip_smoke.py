@@ -21,20 +21,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      geometries (zoom_out beyond the gather's shared-memory box, zoom_in
      beyond the adjoint's cell window) and one batch of ADA draws, with the
      tile paths they take, and rows that are not a multiple of 4 floats;
-     one adjoint call's device events (no memset) and its tile pass's SASS
-     (no global atomic);
+     one call of each adjoint (interleaved and two-phase): its device events
+     (its two passes, no memset) and its tile pass's SASS (no global atomic);
   3c. the polyphase ADA kernels against their plain versions: the two-phase
-     warp gather and its adjoint at each bucket's S2, the same geometries and
-     draws; then the whole polyphase resample at 256 px, batch 16, against
-     the interleaved one at the same reflect pad, values and image gradient;
+     warp gather and its adjoint at each bucket's S2 and at rows that are
+     not a multiple of 4 floats, the same geometries and draws, with the
+     tile paths the adjoint takes; where nothing clamps or falls back, its
+     bits on two launches and against the interleaved adjoint; then the
+     whole polyphase resample at 256 px, batch 16, against the interleaved
+     one at the same reflect pad, values and image gradient;
   3d. each kernel A instance at its largest main-path shape against one
      cuDNN depthwise call and its bytes bound (device time of CUDA-graph
      replays, in turns), every ADA pass of both forms likewise; the
      interleaved warp pair in turns with grid_sample and its backward
-     (device time, and eager), with --against ROOT another checkout's pair
-     (e.g. the parent commit's) in the same turns; the two-phase warp pair,
-     and its gather in turns with the interleaved gather and grid_sample
-     (--kernels-only stops here);
+     (device time, and eager), with --against ROOT another checkout's
+     kernels (e.g. the parent commit's) in the same turns; the two-phase
+     pair likewise, its gather in turns with the interleaved gather and
+     grid_sample, its adjoint with grid_sample's backward and --against's
+     two-phase adjoint (--kernels-only stops here);
   4. the serving slice at full width (StyleGAN2-256, channel_multiplier 2,
      style_dim 512, n_mlp 8, random weights from a seed): save a checkpoint,
      run cli.generate, draw DRS samples, with the launch counts (per kernel,
@@ -612,36 +616,42 @@ def check_warp(dev, rng):
 
 
 def check_scatter_launches(dev):
-    """One adjoint call at the largest bucket on clipped draws launches the
-    tile pass and the clamped-output pass and nothing else: no memset (the
-    tile pass writes all of dx2). Read from torch.profiler's device events."""
+    """One call of each adjoint at the largest bucket on clipped draws
+    launches its tile pass and its clamped-output pass and nothing else: no
+    memset (the tile pass writes every pixel). Read from torch.profiler's
+    device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    from diagan_tpu_torch.ops import affine_scatter
+    from diagan_tpu_torch.ops import affine_scatter, affine_scatter2
 
     P = ada_pads()[-1]
     s2, win = ada_s2(P), ada_win()
     coef = warp_coefs(P, dev)["clipped"]
     g = torch.randn((16, 3, win, win), device=dev)
-    affine_scatter(g, coef, s2)
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        affine_scatter(g, coef, s2)
+    gq = torch.randn((4, 16, 3, win // 2, win // 2), device=dev)
+    calls = {"affine_scatter": (lambda: affine_scatter(g, coef, s2), "scatter_kernel",
+                                "scatter_clamped_kernel"),
+             "affine_scatter2": (lambda: affine_scatter2(gq, coef, s2), "scatter2_kernel",
+                                 "scatter2_clamped_kernel")}
+    for label, (call, tiles, clamped) in calls.items():
+        call()
         torch.cuda.synchronize()
-    names = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
-    print(f"device events of one affine_scatter call: {names}")
-    if not names:
-        print("  the profiler recorded no device events: memset check not measured")
-        return
-    check(not any("memset" in n.lower() for n in names), f"affine_scatter issued a memset: {names}")
-    check(any(re.search(r"\bscatter_kernel\b", n) for n in names) and
-          any("scatter_clamped_kernel" in n for n in names),
-          f"affine_scatter did not launch its two passes: {names}")
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+        print(f"device events of one {label} call: {names}")
+        if not names:
+            print("  the profiler recorded no device events: memset check not measured")
+            continue
+        check(not any("memset" in n.lower() for n in names), f"{label} issued a memset: {names}")
+        check(all(any(re.search(rf"\b{k}\b", n) for n in names) for k in (tiles, clamped)),
+              f"{label} did not launch its two passes: {names}")
 
 
 WARP_KERNELS = ("gather_kernel", "scatter_kernel", "scatter_clamped_kernel", "gather2_kernel",
-                "scatter2_kernel")  # csrc/affine_warp.cu's kernels
+                "scatter2_kernel", "scatter2_clamped_kernel")  # csrc/affine_warp.cu's kernels
 
 
 def sass_atomics(lib_path):
@@ -667,36 +677,55 @@ def sass_atomics(lib_path):
 
 
 def check_atomics():
-    """The interleaved adjoint's tile pass (scatter_kernel) has no global
-    atomic in its SASS."""
+    """The adjoints' tile passes (scatter_kernel, scatter2_kernel) have no
+    global atomic in their SASS."""
     from diagan_tpu_torch.ops import _build
 
     found = sass_atomics(_build._target("affine_warp"))
     for name, ops in sorted(found.items()):
         print(f"SASS atomics, {name[:60]}: {ops or 'none'}")
-    check("scatter_kernel" in found, f"scatter_kernel not found in the SASS: {sorted(found)}")
-    glob = {op: k for op, k in found["scatter_kernel"].items() if not op.startswith("ATOMS")}
-    check(not glob, f"scatter_kernel has global atomics: {glob}")
+    for kernel in ("scatter_kernel", "scatter2_kernel"):
+        check(kernel in found, f"{kernel} not found in the SASS: {sorted(found)}")
+        glob = {op: k for op, k in found[kernel].items() if not op.startswith("ATOMS")}
+        check(not glob, f"{kernel} has global atomics: {glob}")
+
+
+ADJOINT_PATHS = ("adjoint zero", "adjoint cells", "adjoint fallback", "clamped images")
 
 
 def check_warp2(dev, rng):
     """The two-phase warp gather and its adjoint against the plain versions
-    at each ADA bucket's S2 and win, on the geometries of check_warp."""
+    at each ADA bucket's S2 and win, on the geometries of check_warp, and at
+    the largest S2 less 2 (rows not a multiple of 4 floats: the adjoint's
+    scalar stores) on rot_scale and the ADA draws. The adjoint is the
+    interleaved adjoint's tile pass under another layout, so the paths each
+    call takes are counted from the same tile geometry and every one must
+    run; where no output is clamped and no tile falls back, two launches
+    must give the same bits, and those of the interleaved adjoint of the
+    interleaved cotangent, de-interleaved."""
     from diagan_tpu_torch.ops import (
         affine_gather2_plain,
         affine_gather_2phase,
+        affine_scatter,
         affine_scatter2,
         affine_scatter2_plain,
     )
+    from diagan_tpu_torch.ops.ada_phase import _plane_offsets, _quarter_offsets
 
     win = ada_win()
     err_g = err_s = 0.0
     exact = True
-    for P in ada_pads():
-        s2 = ada_s2(P)
+    paths, same = {}, 0
+    interleave = _quarter_offsets(16, 3, win, dev)  # the quarter grids as one win x win grid
+    runs = [(P, ada_s2(P), None) for P in ada_pads()]
+    runs.append((ada_pads()[-1], ada_s2(ada_pads()[-1]) - 2, ("rot_scale", "ada_p1")))
+    for P, s2, names in runs:
         v0, v1 = (torch.randn((16, 3, s2 // 2, s2), generator=rng, device=dev) for _ in range(2))
         g = torch.randn((4, 16, 3, win // 2, win // 2), generator=rng, device=dev)
+        g_int, planes = g.flatten()[interleave], _plane_offsets(16, 3, s2, dev)
         for name, coef in warp_coefs(P, dev).items():
+            if names and name not in names:
+                continue
             out = affine_gather_2phase(v0, v1, coef, win, s2)
             dv = affine_scatter2(g, coef, s2)
             torch.cuda.synchronize()
@@ -714,12 +743,32 @@ def check_warp2(dev, rng):
                       f"affine scatter2 {name} s2={s2}: err {diff.max().item()}")
                 err_s = max(err_s, diff.max().item())
             err_g = max(err_g, e)
-            del out, dv, want, want_dv
-        del v0, v1, g
-    print(f"two-phase affine warp: S2 {[ada_s2(P) for P in ada_pads()]}, win {win}, "
-          f"{len(WARP_CASES)} geometries + ADA draws at p=1: gather2 max abs err {err_g:.3e} "
+            del out, want, want_dv
+            used = warp_paths(coef, win, s2)
+            if not used["clamped images"] and not used["adjoint fallback"]:
+                check(torch.equal(torch.stack(dv).flatten()[planes], affine_scatter(g_int, coef, s2)),
+                      f"affine scatter2 {name} s2={s2}: not the interleaved adjoint's bits")
+                check(all(torch.equal(a, b) for a, b in zip(affine_scatter2(g, coef, s2), dv)),
+                      f"affine scatter2 {name} s2={s2}: two launches differ")
+                same += 1
+            for k in ADJOINT_PATHS:
+                paths.setdefault(k, {}).setdefault(name, 0)
+                paths[k][name] += used[k]
+            del dv
+        del v0, v1, g, g_int, planes
+    print(f"two-phase affine warp: S2 {[s2 for _, s2, _ in runs]}, win {win}, "
+          f"{len(WARP_CASES)} geometries + ADA draws at p=1 (S2 {runs[-1][1]}: rot_scale and "
+          f"the draws): gather2 max abs err {err_g:.3e} "
           f"({'bit-exact' if exact else 'not bit-exact'}; tol 1e-6 x max|out|), adjoint "
-          f"{err_s:.3e} (adjoint_tol)")
+          f"{err_s:.3e} (adjoint_tol); on {same} cases with no clamped output and no fallback "
+          f"tile the adjoint gives the same bits on two launches and equals the interleaved "
+          f"adjoint of the interleaved cotangent, de-interleaved, bit for bit")
+    for k, by_case in paths.items():
+        print(f"  {k}: " + ", ".join(f"{c} {v}" for c, v in by_case.items() if v))
+        check(sum(by_case.values()) > 0, f"no call of check_warp2 took the path '{k}'")
+    check(same > 0, "check_warp2 held no case to the interleaved adjoint's bits")
+    check(paths["clamped images"]["clipped"] > 0 and paths["adjoint fallback"]["zoom_in"] > 0,
+          "clipped took no clamped-output pass or zoom_in no fallback")
     return err_g, err_s
 
 
@@ -1019,10 +1068,11 @@ def in_turns(fns):
 
 
 def against_warp(root):
-    """The interleaved warp pair of another checkout (its
+    """The warp adjoints and the interleaved gather of another checkout (its
     diagan_tpu_torch/csrc/affine_warp.cu, built here with the port's nvcc
-    flags), for timing against this one on the same card: (gather, scatter)
-    with the arguments and outputs of affine_gather and affine_scatter."""
+    flags), for timing against this one on the same card: {"root", "gather",
+    "scatter", "scatter2"}, the last three with the arguments and outputs of
+    affine_gather, affine_scatter and affine_scatter2."""
     import ctypes
 
     from diagan_tpu_torch.ops import _build
@@ -1034,39 +1084,70 @@ def against_warp(root):
                    check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
 
-    def bind(name):
+    def bind(name, pointers):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
-        def launch(src_t, coef, out, s2, win):
-            n, c = src_t.shape[:2]
-            err = fn(src_t.data_ptr(), coef.data_ptr(), out.data_ptr(), n, c, s2, win,
+        def launch(tensors, n, c, s2, win):
+            err = fn(*(t.data_ptr() for t in tensors), n, c, s2, win,
                      torch.cuda.current_stream().cuda_stream)
             check(err == 0, f"{root}: {name} launch failed, cudaError {err}")
-            return out
         return launch
 
-    gather, scatter = bind("affine_warp_gather"), bind("affine_warp_scatter")
+    gather, scatter = bind("affine_warp_gather", 3), bind("affine_warp_scatter", 3)
+    scatter2 = bind("affine_warp2_scatter", 4)
 
     def gather_fn(x2, coef, win):
         n, c, s2, _ = x2.shape
-        return gather(x2, coef, torch.empty((n, c, win, win), device=x2.device), s2, win)
+        out = torch.empty((n, c, win, win), device=x2.device)
+        gather((x2, coef, out), n, c, s2, win)
+        return out
 
     def scatter_fn(g, coef, s2):
         n, c, win, _ = g.shape
-        return scatter(g, coef, torch.empty((n, c, s2, s2), device=g.device), s2, win)
+        dx2 = torch.empty((n, c, s2, s2), device=g.device)
+        scatter((g, coef, dx2), n, c, s2, win)
+        return dx2
 
-    return gather_fn, scatter_fn
+    def scatter2_fn(g, coef, s2):
+        _, n, c, h2, _ = g.shape
+        dv = torch.empty((2, n, c, s2 // 2, s2), device=g.device)
+        scatter2((g, coef, dv[0], dv[1]), n, c, s2, 2 * h2)
+        return dv[0], dv[1]
+
+    return {"root": root, "gather": gather_fn, "scatter": scatter_fn, "scatter2": scatter2_fn}
+
+
+def entry_in_turns(fns, name, plain, b_by, smi, **fields):
+    """The kernels-line entry of the warp kernel `name` among fns {label: fn}
+    (another checkout's kernel first where there is one, the library call
+    last): device time of CUDA-graph replays in turns (in_turns), and the
+    kernel's eager time (cuda_ms) and its plain version's."""
+    ms = in_turns(fns)
+    labels = list(fns)
+    b, by = b_by
+    entry = {"name": name, "route": "cuda", "source": "diagan_tpu_torch/csrc/affine_warp.cu",
+             **fields, "ms": sum(ms[name]) / 2, "ms_eager": cuda_ms(fns[name]),
+             "plain_ms": cuda_ms(plain, iters=3), "bound_ms": b, "bound_by": by,
+             "library_ms": sum(ms[labels[-1]]) / 2}
+    if labels[0] != name:
+        entry["against_ms"] = sum(ms[labels[0]]) / 2
+    print(f"{name} at {entry['shape']}, in turns (device time): " + "; ".join(
+        f"{k} {t1:.4f} / {t2:.4f} ms" for k, (t1, t2) in ms.items()) +
+        f"; eager {entry['ms_eager']:.4f} ms, plain {entry['plain_ms']:.4f} ms, bound "
+        f"{b:.4f} ms ({by}), {b / entry['ms']:.2f} of the bound [{smi}]")
+    entry["shape"] += "; ms and library_ms: device time of CUDA-graph replays, mean of two turns"
+    return entry
 
 
 def time_warp(dev, rng, smi, errs, against=None):
     """The interleaved warp pair at the largest bucket on one batch of ADA
     draws at p = 1 (the kernels-line entries, without launches): each kernel
     in turns with grid_sample and its backward as device time of CUDA-graph
-    replays (graph_ms), and eagerly (cuda_ms); with `against` (the root of
-    another checkout, e.g. the parent commit's tree), that checkout's
-    kernels too, in the same turns."""
+    replays (graph_ms), and eagerly (cuda_ms); with `against` (against_warp:
+    another checkout's kernels, e.g. the parent commit's), those too, in the
+    same turns."""
     import torch.nn.functional as F
 
     from diagan_tpu_torch.ops import (
@@ -1110,48 +1191,33 @@ def time_warp(dev, rng, smi, errs, against=None):
     scatters = {"affine_warp_scatter": lambda: affine_scatter(gw, coef, s2),
                 "grid_sample backward": lib_scatter}
     if against:
-        a_gather, a_scatter = against_warp(against)
-        check(torch.equal(a_gather(x2, coef, win), out), f"{against}: gather differs")
-        diff = (a_scatter(gw, coef, s2) - dx2).abs()
-        check(bool((diff <= 2e-5 + 1e-4 * dx2.abs()).all()), f"{against}: adjoint differs")
-        gathers = {f"{against} gather": lambda: a_gather(x2, coef, win), **gathers}
-        scatters = {f"{against} scatter": lambda: a_scatter(gw, coef, s2), **scatters}
+        root, a_gather, a_scatter = against["root"], against["gather"], against["scatter"]
+        check(torch.equal(a_gather(x2, coef, win), out), f"{root}: gather differs")
+        a_dx2 = a_scatter(gw, coef, s2)
+        diff = (a_dx2 - dx2).abs()
+        check(bool((diff <= 2e-5 + 1e-4 * dx2.abs()).all()), f"{root}: adjoint differs")
+        print(f"{root}'s interleaved adjoint on the timed draws ({warp_paths(coef, win, s2)}): "
+              f"{'the same bits' if torch.equal(a_dx2, dx2) else 'other bits'}, max abs "
+              f"difference {diff.max().item():.3e}")
+        del a_dx2, diff
+        gathers = {f"{root} gather": lambda: a_gather(x2, coef, win), **gathers}
+        scatters = {f"{root} scatter": lambda: a_scatter(gw, coef, s2), **scatters}
     del out, dx2
     out_bytes, coef_bytes = gw.numel() * 4, coef.numel() * 4
     pix_ops = 16 * win * win * 12  # coordinates and weights, once per pixel
-    bounds = {"affine_warp_gather": bound(touched * 3 * 4 + out_bytes + coef_bytes,
-                                          pix_ops + gw.numel() * 9),
-              "affine_warp_scatter": bound(out_bytes + x2.numel() * 4 + coef_bytes,
-                                           pix_ops + gw.numel() * 8)}
-    plains = {"affine_warp_gather": lambda: affine_gather_plain(x2, coef, win),
-              "affine_warp_scatter": lambda: affine_scatter_plain(gw, coef, s2)}
-    replaces = {"affine_warp_gather": "diagan_tpu/ops/warp_pallas.py:239",
-                "affine_warp_scatter": "diagan_tpu/ops/warp_pallas.py:397"}
-    shapes = {"affine_warp_gather": f"{tuple(x2.shape)} -> {tuple(gw.shape)} fp32, ADA draws "
-                                    f"at p=1 ({touched} source pixels touched)",
-              "affine_warp_scatter": f"{tuple(gw.shape)} -> {tuple(x2.shape)} fp32, ADA draws "
-                                     f"at p=1"}
-    kernels = []
-    for fns, err in ((gathers, errs["gather"]), (scatters, errs["scatter"])):
-        ms = in_turns(fns)
-        name, lib_name = [k for k in fns if k.startswith("affine_warp")][0], list(fns)[-1]
-        b, by = bounds[name]
-        entry = {
-            "name": name, "route": "cuda", "source": "diagan_tpu_torch/csrc/affine_warp.cu",
-            "replaces": replaces[name], "max_abs_err": err,
-            "ms": sum(ms[name]) / 2, "ms_eager": cuda_ms(fns[name]),
-            "plain_ms": cuda_ms(plains[name], iters=3),
-            "bound_ms": b, "bound_by": by, "library_ms": sum(ms[lib_name]) / 2,
-            "shape": f"{shapes[name]}; ms and library_ms: device time of CUDA-graph replays, "
-                     f"mean of two turns",
-        }
-        if against:
-            entry["against_ms"] = sum(ms[list(fns)[0]]) / 2
-        kernels.append(entry)
-        print(f"{name} at {shapes[name]}, in turns (device time): " + "; ".join(
-            f"{k} {t1:.4f} / {t2:.4f} ms" for k, (t1, t2) in ms.items()) +
-            f"; eager {entry['ms_eager']:.4f} ms, plain {entry['plain_ms']:.4f} ms, bound "
-            f"{b:.4f} ms ({by}), {b / entry['ms']:.2f} of the bound [{smi}]")
+    kernels = [
+        entry_in_turns(gathers, "affine_warp_gather", lambda: affine_gather_plain(x2, coef, win),
+                       bound(touched * 3 * 4 + out_bytes + coef_bytes, pix_ops + gw.numel() * 9),
+                       smi, replaces="diagan_tpu/ops/warp_pallas.py:239",
+                       max_abs_err=errs["gather"],
+                       shape=f"{tuple(x2.shape)} -> {tuple(gw.shape)} fp32, ADA draws at p=1 "
+                             f"({touched} source pixels touched)"),
+        entry_in_turns(scatters, "affine_warp_scatter", lambda: affine_scatter_plain(gw, coef, s2),
+                       bound(out_bytes + x2.numel() * 4 + coef_bytes, pix_ops + gw.numel() * 8),
+                       smi, replaces="diagan_tpu/ops/warp_pallas.py:397",
+                       max_abs_err=errs["scatter"],
+                       shape=f"{tuple(gw.shape)} -> {tuple(x2.shape)} fp32, ADA draws at p=1"),
+    ]
     del x2, gw, grid
     return kernels
 
@@ -1287,11 +1353,16 @@ def time_fir_instances(dev, rng, ch, k4, smi):
     return {inst: entry for inst, (_, entry) in largest.items()}
 
 
-def time_warp2(dev, rng, smi, errs):
-    """The two-phase warp pair at the largest bucket (kernel, plain, library,
-    bound; the kernels-line entries, without launches), and the two-phase
-    gather in turns with the interleaved gather on the same draws and
-    grid_sample."""
+def time_warp2(dev, rng, smi, errs, against=None):
+    """The two-phase warp pair at the largest bucket on one batch of ADA
+    draws at p = 1 (the kernels-line entries, without launches), as
+    time_warp times the interleaved pair: device time of CUDA-graph replays
+    in turns, and eagerly. #8 in turns with the interleaved gather (#6) on
+    the same draws and grid_sample; #9 in turns with grid_sample's backward
+    as one call, and with `against` (against_warp), that checkout's #9. The
+    library calls read and write the interleaved buffer on a grid whose rows
+    are the four quarter grids one after another (the interleave is built
+    once and not timed)."""
     import torch.nn.functional as F
 
     from diagan_tpu_torch.ops import (
@@ -1304,7 +1375,6 @@ def time_warp2(dev, rng, smi, errs):
     from diagan_tpu_torch.ops.ada_phase import PARITIES
     from diagan_tpu_torch.ops.warp import _taps as warp_taps
 
-    kernels = []
     win = ada_win()
     h2, P = win // 2, ada_pads()[-1]
     s2 = ada_s2(P)
@@ -1313,8 +1383,7 @@ def time_warp2(dev, rng, smi, errs):
     gq = torch.randn((4, 16, 3, h2, h2), generator=rng, device=dev)
     index, _ = warp_taps(coef, win, s2)
     touched = sum(torch.unique(torch.stack([i[k] for i in index])).numel() for k in range(16))
-    # the library yardstick reads the interleaved buffer (built here, not
-    # timed) on a grid whose rows are the four quarter grids one after another
+    del index
     x2 = torch.stack([v0, v1], 3).reshape(16, 3, s2, s2)
     idx = torch.arange(h2, dtype=torch.float32, device=dev)
     c = coef[:, :, None, None]
@@ -1324,65 +1393,60 @@ def time_warp2(dev, rng, smi, errs):
         qy, qx = c[:, 0] * ii + c[:, 1] * jj + c[:, 2], c[:, 3] * ii + c[:, 4] * jj + c[:, 5]
         quarters.append(torch.stack([2 * qx / (s2 - 1) - 1, 2 * qy / (s2 - 1) - 1], -1))
     grid = torch.cat(quarters, 1)  # (16, 4 * h2, h2, 2)
+    g_lib = gq.permute(1, 2, 0, 3, 4).reshape(16, 3, 4 * h2, h2)  # the cotangent on that grid
 
-    def lib_gather(x):
-        return F.grid_sample(x, grid, mode="bilinear", padding_mode="border", align_corners=True)
+    def lib_gather():
+        return F.grid_sample(x2, grid, mode="bilinear", padding_mode="border", align_corners=True)
 
-    def parity_major(y):  # (16, 3, 4 * h2, h2) -> (4, 16, 3, h2, h2)
-        return y.reshape(16, 3, 4, h2, h2).permute(2, 0, 1, 3, 4)
+    def lib_scatter():  # grid_sample's backward as one call: bilinear, border, x2's grad only
+        return torch.ops.aten.grid_sampler_2d_backward(g_lib, x2, grid, 0, 1, True,
+                                                       [True, False])[0]
 
     out = torch.stack(affine_gather_2phase(v0, v1, coef, win, s2))
-    check(max_err(parity_major(lib_gather(x2)), out) <= 1e-3 * x2.abs().max().item(),
-          "grid_sample yardstick disagrees with the two-phase gather")
-    xr = x2.clone().requires_grad_(True)
-    out_lib = lib_gather(xr)
-    g_lib = gq.permute(1, 2, 0, 3, 4).reshape(16, 3, 4 * h2, h2)
-    dv0, dv1 = affine_scatter2(gq, coef, s2)
-    dx2 = torch.stack([dv0, dv1], 3).reshape(16, 3, s2, s2)
-    check(max_err(torch.autograd.grad(out_lib, xr, g_lib, retain_graph=True)[0], dx2)
-          <= 1e-3 * dx2.abs().max().item(), "grid_sample backward disagrees with the adjoint2")
-    del dv0, dv1, dx2
+    check(max_err(lib_gather().reshape(16, 3, 4, h2, h2).permute(2, 0, 1, 3, 4), out)
+          <= 1e-3 * x2.abs().max().item(), "grid_sample yardstick disagrees with the two-phase "
+                                           "gather")
+    dv = affine_scatter2(gq, coef, s2)
+    dx2 = torch.stack(dv, 3).reshape(16, 3, s2, s2)
+    check(max_err(lib_scatter(), dx2) <= 1e-3 * dx2.abs().max().item(),
+          "grid_sample backward disagrees with the two-phase adjoint")
+    gathers = {"affine_warp2_gather": lambda: affine_gather_2phase(v0, v1, coef, win, s2),
+               "interleaved gather (#6)": lambda: affine_gather(x2, coef, win),
+               "grid_sample": lib_gather}
+    scatters = {"affine_warp2_scatter": lambda: affine_scatter2(gq, coef, s2),
+                "grid_sample backward": lib_scatter}
+    if against:
+        root, a_scatter2 = against["root"], against["scatter2"]
+        diffs = [(a - b).abs() for a, b in zip(a_scatter2(gq, coef, s2), dv)]
+        check(all(bool((d <= 2e-5 + 1e-4 * b.abs()).all()) for d, b in zip(diffs, dv)),
+              f"{root}: two-phase adjoint differs")
+        print(f"{root}'s two-phase adjoint on the timed draws: max abs difference "
+              f"{max(d.max().item() for d in diffs):.3e}")
+        del diffs
+        scatters = {f"{root} scatter2": lambda: a_scatter2(gq, coef, s2), **scatters}
+    del out, dv, dx2
     out_bytes, coef_bytes = gq.numel() * 4, coef.numel() * 4
     pix_ops = 16 * win * win * 12  # coordinates and weights, once per pixel
-    b, by = bound(touched * 3 * 4 + out_bytes + coef_bytes, pix_ops + gq.numel() * 9)
     shape = f"2 x {tuple(v0.shape)} -> 4 x {tuple(gq.shape[1:])} fp32, ADA draws at p=1"
-    kernels.append({
-        "name": "affine_warp2_gather", "route": "cuda",
-        "source": "diagan_tpu_torch/csrc/affine_warp.cu",
-        "replaces": "diagan_tpu/ops/ada_phase.py:213", "max_abs_err": errs["gather2"],
-        "ms": cuda_ms(lambda: affine_gather_2phase(v0, v1, coef, win, s2)),
-        "plain_ms": cuda_ms(lambda: affine_gather2_plain(v0, v1, coef, win)),
-        "bound_ms": b, "bound_by": by, "library_ms": cuda_ms(lambda: lib_gather(x2)),
-        "shape": f"{shape} ({touched} source pixels touched); library: grid_sample on the "
-                 f"interleaved buffer, its interleave not timed",
-    })
-    b, by = bound(out_bytes + 2 * v0.numel() * 4 + coef_bytes, pix_ops + gq.numel() * 8)
-    kernels.append({
-        "name": "affine_warp2_scatter", "route": "cuda",
-        "source": "diagan_tpu_torch/csrc/affine_warp.cu",
-        "replaces": "diagan_tpu/ops/ada_phase.py:327", "max_abs_err": errs["scatter2"],
-        "ms": cuda_ms(lambda: affine_scatter2(gq, coef, s2)),
-        "plain_ms": cuda_ms(lambda: affine_scatter2_plain(gq, coef, s2)),
-        "bound_ms": b, "bound_by": by,
-        "library_ms": cuda_ms(lambda: torch.autograd.grad(out_lib, xr, g_lib, retain_graph=True)),
-        "shape": f"4 x {tuple(gq.shape[1:])} -> 2 x {tuple(v0.shape)} fp32, ADA draws at p=1; "
-                 f"library: grid_sample backward onto the interleaved buffer",
-    })
-    for k in kernels:
-        print(f"{k['name']} at {k['shape']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
-              f"library {k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bound_by']}) "
-              f"[{smi}]")
-    # the two gathers do the same work on the same draws: #8 from the two
-    # y-phase planes, #6 from the interleaved buffer
-    turns = {"two-phase gather (#8)": lambda: affine_gather_2phase(v0, v1, coef, win, s2),
-             "interleaved gather (#6)": lambda: affine_gather(x2, coef, win),
-             "grid_sample": lambda: lib_gather(x2)}
-    ms = {}
-    for name in [*turns, *reversed(turns)]:
-        ms.setdefault(name, []).append(cuda_ms(turns[name]))
-    print("gathers at the largest bucket, in turns: " + "; ".join(
-        f"{name} {t1:.4f} / {t2:.4f} ms" for name, (t1, t2) in ms.items()) + f" [{smi}]")
-    del v0, v1, gq, x2, xr, out_lib, g_lib, out, index
+    kernels = [
+        entry_in_turns(gathers, "affine_warp2_gather",
+                       lambda: affine_gather2_plain(v0, v1, coef, win),
+                       bound(touched * 3 * 4 + out_bytes + coef_bytes, pix_ops + gq.numel() * 9),
+                       smi, replaces="diagan_tpu/ops/ada_phase.py:213",
+                       max_abs_err=errs["gather2"],
+                       shape=f"{shape} ({touched} source pixels touched); library: grid_sample "
+                             f"on the interleaved buffer"),
+        entry_in_turns(scatters, "affine_warp2_scatter",
+                       lambda: affine_scatter2_plain(gq, coef, s2),
+                       bound(out_bytes + 2 * v0.numel() * 4 + coef_bytes,
+                             pix_ops + gq.numel() * 8),
+                       smi, replaces="diagan_tpu/ops/ada_phase.py:327",
+                       max_abs_err=errs["scatter2"],
+                       shape=f"4 x {tuple(gq.shape[1:])} -> 2 x {tuple(v0.shape)} fp32, ADA "
+                             f"draws at p=1; library: grid_sampler_2d_backward onto the "
+                             f"interleaved buffer"),
+    ]
+    del v0, v1, gq, x2, grid, g_lib
     return kernels
 
 
@@ -1428,7 +1492,8 @@ def time_training(tr, smi):
           f"(R1 every 16, path every 4) {(12 * plain + 3 * path + both) / 16:.2f} ms/step "
           f"[{smi}]")
     tags = (*FIR_TAGS, "flr_fwd", "flr_bwd", "flr_db", "gather_kernel", "scatter_kernel",
-            "scatter_clamped_kernel", "gather2_kernel", "scatter2_kernel", "Memset")
+            "scatter_clamped_kernel", "gather2_kernel", "scatter2_kernel", "scatter2_clamped_kernel",
+            "Memset")
     profile(lambda: tr.train_step(1), f"one ADA-live plain training step (batch 16, {SIZE} px)",
             smi, tags)
 
@@ -1465,8 +1530,9 @@ def main(argv=None):
                         help="stop after phase 3d (build, check and time the kernels, "
                              "check the polyphase resample)")
     parser.add_argument("--against", metavar="ROOT",
-                        help="also time the interleaved warp pair of the checkout at ROOT "
-                             "(e.g. the parent commit's tree) in turns with this one")
+                        help="also time the warp adjoints and the interleaved gather of the "
+                             "checkout at ROOT (e.g. the parent commit's tree) in turns with "
+                             "this one")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a card",
@@ -1572,8 +1638,9 @@ def main(argv=None):
     fir_kernels = time_fir_instances(dev, rng_b, ch, k4, smi)
     for inst, k in fir_kernels.items():
         k["max_abs_err"] = fir_errs[inst]
-    warp_kernels = time_warp(dev, rng_b, smi, errs, args.against)
-    warp_kernels += time_warp2(dev, rng_b, smi, errs)
+    against = against_warp(args.against) if args.against else None
+    warp_kernels = time_warp(dev, rng_b, smi, errs, against)
+    warp_kernels += time_warp2(dev, rng_b, smi, errs, against)
     if args.kernels_only:
         print(smi)
         return 0

@@ -75,20 +75,26 @@
 // ops/warp.py mirrors this tile geometry in plain torch (_gather_tile_boxes,
 // _scatter_tile_candidates) so that the CPU tests can check it.
 //
-// The two-phase pair: one thread per output pixel of one image walks the C
-// channel planes. The gather numbers its threads by output row and column,
-// so a warp's 32 lanes take 32 neighbouring output columns; within each run
-// of 32 columns the lanes are ordered parity first (lanes 0-15 the even
-// columns, 16-31 the odd ones), so each half-warp stores 16 neighbouring
-// words of one quarter grid. The adjoint enumerates the pixels
-// quarter-grid-major (a, b, uy, ux), zeroes both planes (cudaMemsetAsync on
-// the caller's stream) and adds each term with atomicAdd, skipping terms
-// whose weight is 0.
+// The two-phase pair. gather2_kernel: one thread per output pixel of one
+// image walks the C channel planes, its threads numbered by output row and
+// column, so a warp's 32 lanes take 32 neighbouring output columns; within
+// each run of 32 columns the lanes are ordered parity first (lanes 0-15 the
+// even columns, 16-31 the odd ones), so each half-warp stores 16
+// neighbouring words of one quarter grid. Its adjoint is the interleaved
+// adjoint's tile pass and clamped pass with two address maps changed,
+// through a layout policy (Interleaved, TwoPhase below): the cotangent of
+// output (i, j) is read from quarter grid (i & 1) * 2 + (j & 1) at
+// (i >> 1, j >> 1), and buffer row y is written to phase_row(y). The tiles,
+// candidates, cells and sum order are the same, so scatter2_kernel owns its
+// tiles of both planes with no memset and no global atomic, and
+// scatter2_clamped_kernel adds the clamped outputs. Where no output is
+// clamped and no tile falls back, its planes equal the interleaved adjoint's
+// dx2 of the interleaved cotangent, de-interleaved, bit for bit.
 //
 // The adjoints match the plain versions to fp32 rounding, not bit for bit:
-// they sum in another order, and where they use atomics (the two-phase
-// adjoint, the interleaved one's clamped outputs and fallback) in an order
-// that changes from run to run.
+// they sum in another order, and where they use atomics (the clamped
+// outputs and the fallback of both adjoints) in an order that changes from
+// run to run.
 
 #include <cuda_runtime.h>
 
@@ -112,6 +118,8 @@ constexpr int SCATTER_ROWS = SCATTER_TH / WARPS;  // pixel rows of one warp's st
 constexpr int SCATTER_CH = 3;               // channels per pass of the cell path
 constexpr int SCATTER_BLOCKS = 2;           // resident tile-pass blocks per SM
 constexpr int CLAMP_BLOCKS = 64;            // blocks per image, clamped-output pass
+// a dx2 tile's rows start at an even row, so its row dy has the parity of dy
+static_assert(SCATTER_TH % 2 == 0 && SCATTER_TH % WARPS == 0, "scatter tile rows");
 
 struct Q {
   float y, x;  // the unclamped source point
@@ -424,24 +432,131 @@ __device__ TileGeom tile_geom(const float* cf, int r0, int r1, int c0, int c1, i
   return t;
 }
 
+// Row y of the S2 x S2 buffer in the two-phase layout: row y >> 1 of plane
+// y & 1, planes (S2 / 2) x S2. `base` is the (n, c) offset of both planes.
+template <typename T>
+__device__ __forceinline__ T* phase_row(T* v0, T* v1, long long base, int y, int S2) {
+  return (y & 1 ? v1 : v0) + base + (long long)(y >> 1) * S2;
+}
+
+// The adjoints' two layouts. A layout says where the cotangent of output
+// (i, j) lies in g and where row y of the S2 x S2 buffer lies; the tile pass
+// and the clamped pass below take one as a template argument and depend on
+// the layout through it alone:
+//  - gc(): g's channel stride; image(n): g at image n, channel 0;
+//    at(gn, i, j): the cotangent of output (i, j) of the channel at gn;
+//  - first(gn, i0, j0), once per cell, and cand(g0, i, j, a, b): the cell
+//    path's candidate (i, j) = (i0 + a, j0 + b), indices held as floats;
+//  - output(p, i, j), flat(n, c, p): the clamped pass's enumeration of the
+//    outputs in g's own order, so that neighbouring threads read
+//    neighbouring words;
+//  - dst(n, r0, c0).row(c, dy): row r0 + dy of channel c of image n, from
+//    column c0 (r0 even).
+// Interleaved: g (N, C, win, win), dx2 (N, C, S2, S2).
+struct Interleaved {
+  const float* __restrict__ g;
+  float* __restrict__ dx2;
+  int N, C, S2, win;
+
+  struct Dst {
+    float* p;
+    long long plane;
+    int S2;
+    __device__ __forceinline__ float* row(int c, int dy) const {
+      return p + c * plane + (long long)dy * S2;
+    }
+  };
+
+  __device__ __forceinline__ long long gc() const { return (long long)win * win; }
+  __device__ __forceinline__ const float* image(int n) const { return g + (long long)n * C * gc(); }
+  __device__ __forceinline__ const float* at(const float* gn, int i, int j) const {
+    return gn + (long long)i * win + j;
+  }
+  __device__ __forceinline__ const float* first(const float* gn, float i0, float j0) const {
+    return gn + ((int)i0 * win + (int)j0);
+  }
+  __device__ __forceinline__ const float* cand(const float* g0, float, float, int a, int b) const {
+    return g0 + a * win + b;
+  }
+  __device__ __forceinline__ void output(long long p, int& i, int& j) const {
+    i = (int)(p / win);
+    j = (int)(p % win);
+  }
+  __device__ __forceinline__ const float* flat(int n, int c, long long p) const {
+    return g + ((long long)n * C + c) * gc() + p;
+  }
+  __device__ __forceinline__ Dst dst(int n, int r0, int c0) const {
+    const long long plane = (long long)S2 * S2;
+    return {dx2 + (long long)n * C * plane + (long long)r0 * S2 + c0, plane, S2};
+  }
+};
+
+// TwoPhase: g (4, N, C, win/2, win/2), output (i, j) in quarter grid
+// (i & 1) * 2 + (j & 1) at (i >> 1, j >> 1); dv0, dv1 (N, C, S2/2, S2),
+// buffer row y at phase_row(y).
+struct TwoPhase {
+  const float* __restrict__ g;
+  float* __restrict__ dv0;
+  float* __restrict__ dv1;
+  int N, C, S2, win;
+
+  struct Dst {
+    float* p0;
+    float* p1;
+    long long plane;
+    int S2;
+    __device__ __forceinline__ float* row(int c, int dy) const {
+      return phase_row(p0, p1, c * plane, dy, S2);
+    }
+  };
+
+  __device__ __forceinline__ int h2() const { return win >> 1; }
+  __device__ __forceinline__ long long gc() const { return (long long)h2() * h2(); }
+  __device__ __forceinline__ const float* image(int n) const { return g + (long long)n * C * gc(); }
+  __device__ __forceinline__ const float* at(const float* gn, int i, int j) const {
+    return gn + ((i & 1) * 2 + (j & 1)) * ((long long)N * C * gc()) +
+           (long long)(i >> 1) * h2() + (j >> 1);
+  }
+  __device__ __forceinline__ const float* first(const float* gn, float, float) const { return gn; }
+  __device__ __forceinline__ const float* cand(const float* gn, float i, float j, int, int) const {
+    return at(gn, (int)i, (int)j);
+  }
+  __device__ __forceinline__ void output(long long p, int& i, int& j) const {
+    const int q = (int)(p / gc()), r = (int)(p % gc());
+    i = 2 * (r / h2()) + (q >> 1);
+    j = 2 * (r % h2()) + (q & 1);
+  }
+  __device__ __forceinline__ const float* flat(int n, int c, long long p) const {
+    const long long q = p / gc();
+    return g + ((q * N + n) * C + c) * gc() + (p - q * gc());
+  }
+  __device__ __forceinline__ Dst dst(int n, int r0, int c0) const {
+    const long long plane = (long long)(S2 / 2) * S2;
+    const long long off = (long long)n * C * plane + (long long)(r0 >> 1) * S2 + c0;
+    return {dv0 + off, dv1 + off, plane, S2};
+  }
+};
+
 // Write a th x tw tile held with row stride SCATTER_TW in `src` (zeros when
-// src is null) at `dst` (row stride S2), float4 stores when vec.
-__device__ __forceinline__ void flush(const float* src, float* dst, int S2, int th, int tw,
+// src is null) at rows 0 .. th - 1 of channel c of `d`, float4 stores when
+// vec.
+template <typename Dst>
+__device__ __forceinline__ void flush(const float* src, const Dst& d, int c, int th, int tw,
                                       bool vec) {
   if (vec) {
     constexpr int Q4 = SCATTER_TW / 4;
     for (int k = threadIdx.x; k < th * Q4; k += THREADS) {
-      const int r = k / Q4, c = (k % Q4) * 4;
-      if (c < tw) {
-        const float4 v = src ? *reinterpret_cast<const float4*>(src + r * SCATTER_TW + c)
+      const int r = k / Q4, col = (k % Q4) * 4;
+      if (col < tw) {
+        const float4 v = src ? *reinterpret_cast<const float4*>(src + r * SCATTER_TW + col)
                              : make_float4(0.f, 0.f, 0.f, 0.f);
-        *reinterpret_cast<float4*>(dst + (long long)r * S2 + c) = v;
+        *reinterpret_cast<float4*>(d.row(c, r) + col) = v;
       }
     }
   } else {
     for (int k = threadIdx.x; k < th * SCATTER_TW; k += THREADS) {
-      const int r = k / SCATTER_TW, c = k % SCATTER_TW;
-      if (c < tw) dst[(long long)r * S2 + c] = src ? src[r * SCATTER_TW + c] : 0.f;
+      const int r = k / SCATTER_TW, col = k % SCATTER_TW;
+      if (col < tw) d.row(c, r)[col] = src ? src[r * SCATTER_TW + col] : 0.f;
     }
   }
 }
@@ -456,12 +571,14 @@ __device__ __forceinline__ void flush(const float* src, float* dst, int S2, int 
 // Then floor(q) is the cell, so tap()'s weights are q - (cy, cx), and the
 // terms are those of terms(). Candidates are taken row by row, so the sums
 // come in a fixed order. Zero outside the buffer. Indices are held as floats
-// (exact below 2^24), which keeps conversions out of the candidate loop.
-template <int K>
-__device__ __forceinline__ void cell_sums(const float* __restrict__ gn, long long oplane, int nc,
+// (exact below 2^24), which keeps conversions out of the candidate loop; the
+// two-phase layout converts a candidate's indices once, for its g address.
+template <int K, typename L>
+__device__ __forceinline__ void cell_sums(const L& lay, const float* __restrict__ gn, int nc,
                                           const float* cf, const TileGeom& tg, int r0, int c0,
-                                          int cy, int cx, int S2, int win,
-                                          float (&s)[SCATTER_CH][4]) {
+                                          int cy, int cx, float (&s)[SCATTER_CH][4]) {
+  const int S2 = lay.S2, win = lay.win;
+  const long long oplane = lay.gc();
 #pragma unroll
   for (int k = 0; k < SCATTER_CH; ++k) s[k][0] = s[k][1] = s[k][2] = s[k][3] = 0.f;
   if (cy < 0 || cx < 0 || cy >= S2 || cx >= S2) return;
@@ -474,7 +591,7 @@ __device__ __forceinline__ void cell_sums(const float* __restrict__ gn, long lon
   const float j_lo = fmaxf(ceilf(jc + tg.dj_lo), 0.f);
   const float j_hi = fminf(floorf(jc + tg.dj_hi), last);
   if (i_lo > i_hi || j_lo > j_hi) return;  // the cell holds no output
-  const float* g0 = gn + ((int)i_lo * win + (int)j_lo);
+  const float* g0 = lay.first(gn, i_lo, j_lo);
 #pragma unroll
   for (int a = 0; a < K; ++a) {
 #pragma unroll
@@ -489,7 +606,7 @@ __device__ __forceinline__ void cell_sums(const float* __restrict__ gn, long lon
       t.wx1 = __fsub_rn(q.x, fx);
       t.wy0 = __fsub_rn(1.f, t.wy1);
       t.wx0 = __fsub_rn(1.f, t.wx1);
-      const float* gp = g0 + a * win + b;
+      const float* gp = lay.cand(g0, i, j, a, b);
 #pragma unroll
       for (int k = 0; k < SCATTER_CH; ++k) {
         if (k < nc) {
@@ -504,31 +621,30 @@ __device__ __forceinline__ void cell_sums(const float* __restrict__ gn, long lon
   }
 }
 
-// The cell path of one warp: pixel rows [y0, y0 + rows) of the dx2 tile at
-// (r0, c0), tw columns wide (gn, dn at the image's channel 0, dn at the
-// tile's origin), without atomics and in a fixed order. Lane l takes cell
-// column c0 + l and walks the cell rows y0 - 1 .. y0 + rows - 1; the
-// boundary column c0 - 1 is computed first, cell row y0 - 1 + l on lane l.
+// The cell path of one warp: pixel rows [y0, y0 + rows) of the tile at
+// (r0, c0), tw columns wide (gn at the image's channel 0, d at the tile's
+// origin), without atomics and in a fixed order. Lane l takes cell column
+// c0 + l and walks the cell rows y0 - 1 .. y0 + rows - 1; the boundary
+// column c0 - 1 is computed first, cell row y0 - 1 + l on lane l.
 // Pixel (y, x) adds the corner sums of its four cells,
 //   ((S00(y, x) + S01(y, x - 1)) + S10(y - 1, x)) + S11(y - 1, x - 1),
 // the left ones by shuffle from the lane to the left (or the boundary), the
 // upper ones from the row before, and each warp stores its pixel rows along
 // the row: SCATTER_CH channels a pass.
-template <int K>
-__device__ void scatter_cells(const float* __restrict__ gn, float* dn, const float* cf,
-                              const TileGeom& tg, int r0, int c0, int y0, int rows, int tw,
-                              int C, int S2, int win) {
+template <int K, typename L>
+__device__ void scatter_cells(L lay, const float* __restrict__ gn, typename L::Dst d,
+                              const float* cf, const TileGeom& tg, int r0, int c0, int y0,
+                              int rows, int tw) {
   const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const long long plane = (long long)S2 * S2, oplane = (long long)win * win;
+  const int lane = threadIdx.x & 31, C = lay.C;
+  const long long oplane = lay.gc();
   for (int cg = 0; cg < C; cg += SCATTER_CH) {
     const int nc = min(SCATTER_CH, C - cg);
     const float* gc = gn + (long long)cg * oplane;
     // the boundary column's S01 and S11, and the previous cell row's S10 and S11
     float edge01[SCATTER_CH], edge11[SCATTER_CH], up10[SCATTER_CH], up11[SCATTER_CH];
     float s[SCATTER_CH][4];
-    cell_sums<K>(gc, oplane, nc, cf, tg, r0, c0, lane <= rows ? y0 - 1 + lane : -1, c0 - 1, S2,
-                 win, s);
+    cell_sums<K>(lay, gc, nc, cf, tg, r0, c0, lane <= rows ? y0 - 1 + lane : -1, c0 - 1, s);
 #pragma unroll
     for (int k = 0; k < SCATTER_CH; ++k) {
       edge01[k] = s[k][1];
@@ -537,7 +653,7 @@ __device__ void scatter_cells(const float* __restrict__ gn, float* dn, const flo
     }
     for (int rr = 0; rr <= rows; ++rr) {  // cell row y0 - 1 + rr, pixel row y0 - 1 + rr
       const int cy = y0 - 1 + rr;
-      cell_sums<K>(gc, oplane, nc, cf, tg, r0, c0, cy, c0 + lane, S2, win, s);
+      cell_sums<K>(lay, gc, nc, cf, tg, r0, c0, cy, c0 + lane, s);
 #pragma unroll
       for (int k = 0; k < SCATTER_CH; ++k) {
         float left01 = __shfl_up_sync(full, s[k][1], 1);
@@ -549,9 +665,7 @@ __device__ void scatter_cells(const float* __restrict__ gn, float* dn, const flo
           left11 = rr ? e11 : 0.f;
         }
         const float v = __fadd_rn(__fadd_rn(__fadd_rn(s[k][0], left01), up10[k]), left11);
-        if (rr && k < nc && lane < tw) {
-          dn[(cg + k) * plane + (long long)(cy - r0) * S2 + lane] = v;
-        }
+        if (rr && k < nc && lane < tw) d.row(cg + k, cy - r0)[lane] = v;
         up10[k] = s[k][2];
         up11[k] = s[k][3];
       }
@@ -559,17 +673,18 @@ __device__ void scatter_cells(const float* __restrict__ gn, float* dn, const flo
   }
 }
 
-// The fallback of one dx2 tile, for maps whose cells need a window wider
-// than 3 (strong zoom-in, singular maps): channel by channel, every
-// candidate's terms that land in the tile added to acc with shared atomics
-// (g read through L1), then acc flushed.
-__device__ void scatter_atomic(const float* __restrict__ gn, float* dn, const float* cf,
-                               Box cand, int r0, int c0, int th, int tw, int C, int S2, int win,
+// The fallback of one tile, for maps whose cells need a window wider than 3
+// (strong zoom-in, singular maps): channel by channel, every candidate's
+// terms that land in the tile added to acc with shared atomics (g read
+// through L1), then acc flushed.
+template <typename L>
+__device__ void scatter_atomic(L lay, const float* __restrict__ gn, typename L::Dst d,
+                               const float* cf, Box cand, int r0, int c0, int th, int tw,
                                bool dvec, float* acc) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long plane = (long long)S2 * S2, oplane = (long long)win * win;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, S2 = lay.S2;
+  const long long oplane = lay.gc();
   const int runs = (cand.w + 31) / 32;  // each candidate row in runs of 32 columns
-  for (int c = 0; c < C; ++c) {
+  for (int c = 0; c < lay.C; ++c) {
     for (int k = threadIdx.x; k < SCATTER_TH * SCATTER_TW; k += THREADS) acc[k] = 0.f;
     __syncthreads();
     const float* gc = gn + c * oplane;
@@ -580,7 +695,7 @@ __device__ void scatter_atomic(const float* __restrict__ gn, float* dn, const fl
       if (!inside(q, S2)) continue;
       const int fy = (int)floorf(q.y), fx = (int)floorf(q.x);
       if (fy < r0 - 1 || fy >= r0 + th || fx < c0 - 1 || fx >= c0 + tw) continue;
-      const float gv = __ldg(gc + (long long)i * win + j);
+      const float gv = __ldg(lay.at(gc, i, j));
       if (gv == 0.f) continue;
       // rows y0 = fy and y1 lie in [r0 - 1, r0 + th], columns likewise
       const Tap t = tap_at(q, S2);
@@ -593,30 +708,29 @@ __device__ void scatter_atomic(const float* __restrict__ gn, float* dn, const fl
       if (in_y1 && in_x1) add_shared(acc + ry1 * SCATTER_TW + rx1, v.v11);
     }
     __syncthreads();
-    flush(acc, dn + c * plane, S2, th, tw, dvec);
+    flush(acc, d, c, th, tw, dvec);
     __syncthreads();  // acc flushed before the next channel zeroes it
   }
 }
 
-// grid: (min(tiles, SMs * SCATTER_BLOCKS), 1, 1) persistent blocks over the
-// N x ceil(S2 / SCATTER_TH) x ceil(S2 / SCATTER_TW) tiles of dx2 (column
-// fastest, then row, then image), block b taking tiles b, b + gridDim.x, ...;
-// g (N, C, win, win), dx2 (N, C, S2, S2), every pixel written once (the
-// outputs with a clamped coordinate are left to scatter_clamped_kernel).
-// Warp 0 computes the geometry of the block's next 32 tiles at once, one per
-// lane. A tile that no output reaches is written as zeros; on the cell path
-// (window K of 2 or 3) each warp takes SCATTER_ROWS pixel rows of the tile
-// on its own, with no barrier; the others take the fallback. dvec: S2 a
-// multiple of 4 and dx2 16-byte aligned.
-__global__ void __launch_bounds__(THREADS, SCATTER_BLOCKS)
-scatter_kernel(const float* __restrict__ g, const float* __restrict__ coef,
-               float* __restrict__ dx2, int N, int C, int S2, int win, bool dvec) {
+// The tile pass of layout L: persistent blocks over the N x ceil(S2 /
+// SCATTER_TH) x ceil(S2 / SCATTER_TW) tiles of the S2 x S2 buffer (column
+// fastest, then row, then image), block b taking tiles b, b + gridDim.x,
+// ...; every pixel written once (the outputs with a clamped coordinate are
+// left to the clamped pass). Warp 0 computes the geometry of the block's
+// next 32 tiles at once, one per lane. A tile that no output reaches is
+// written as zeros; on the cell path (window K of 2 or 3) each warp takes
+// SCATTER_ROWS pixel rows of the tile on its own, with no barrier; the
+// others take the fallback. dvec: S2 a multiple of 4 and the buffer (both
+// planes) 16-byte aligned.
+template <typename L>
+__device__ __forceinline__ void scatter_tiles(L lay, const float* __restrict__ coef, bool dvec) {
   __shared__ __align__(16) float acc[SCATTER_TH * SCATTER_TW];  // the fallback's sums
   __shared__ TileGeom geo[32];
   const int warp = threadIdx.x >> 5;
+  const int S2 = lay.S2, win = lay.win;
   const int cols = (S2 + SCATTER_TW - 1) / SCATTER_TW;
-  const int per_image = (S2 + SCATTER_TH - 1) / SCATTER_TH * cols, tiles = N * per_image;
-  const long long plane = (long long)S2 * S2, oplane = (long long)win * win;
+  const int per_image = (S2 + SCATTER_TH - 1) / SCATTER_TH * cols, tiles = lay.N * per_image;
   for (int base = blockIdx.x; base < tiles; base += 32 * gridDim.x) {
     if (threadIdx.x < 32) {
       const int tile = base + threadIdx.x * gridDim.x;
@@ -636,62 +750,89 @@ scatter_kernel(const float* __restrict__ g, const float* __restrict__ coef,
       const int n = tile / per_image, t = tile % per_image;
       const int r0 = t / cols * SCATTER_TH, c0 = t % cols * SCATTER_TW;
       const int th = min(SCATTER_TH, S2 - r0), tw = min(SCATTER_TW, S2 - c0);
-      float* dn = dx2 + (long long)n * C * plane + (long long)r0 * S2 + c0;
+      const typename L::Dst d = lay.dst(n, r0, c0);
       const TileGeom& tg = geo[k];
       if (tg.cand.h <= 0 || tg.cand.w <= 0) {  // no output reaches this tile
-        for (int c = 0; c < C; ++c) flush(nullptr, dn + c * plane, S2, th, tw, dvec);
+        for (int c = 0; c < lay.C; ++c) flush(nullptr, d, c, th, tw, dvec);
         continue;
       }
       float cf[6];
       load_coef(coef, n, cf);
-      const float* gn = g + (long long)n * C * oplane;
+      const float* gn = lay.image(n);
       const int y0 = r0 + warp * SCATTER_ROWS, strip = min(SCATTER_ROWS, r0 + th - y0);
       if (tg.K == 2) {
-        if (strip > 0) scatter_cells<2>(gn, dn, cf, tg, r0, c0, y0, strip, tw, C, S2, win);
+        if (strip > 0) scatter_cells<2>(lay, gn, d, cf, tg, r0, c0, y0, strip, tw);
       } else if (tg.K == 3) {
-        if (strip > 0) scatter_cells<3>(gn, dn, cf, tg, r0, c0, y0, strip, tw, C, S2, win);
+        if (strip > 0) scatter_cells<3>(lay, gn, d, cf, tg, r0, c0, y0, strip, tw);
       } else {
-        scatter_atomic(gn, dn, cf, tg.cand, r0, c0, th, tw, C, S2, win, dvec, acc);
+        scatter_atomic(lay, gn, d, cf, tg.cand, r0, c0, th, tw, dvec, acc);
       }
     }
     __syncthreads();  // every thread is done with geo before warp 0 refills it
   }
 }
 
-// grid: (CLAMP_BLOCKS, N), after scatter_kernel on the stream; adds the
-// outputs with a clamped coordinate onto dx2 with atomicAdd. q is monotone in
-// i and j, so only an image whose output-grid corners leave [0, S2 - 1] has
-// such outputs; the blocks of every other image return at once.
-__global__ void __launch_bounds__(THREADS)
-scatter_clamped_kernel(const float* __restrict__ g, const float* __restrict__ coef,
-                       float* __restrict__ dx2, int C, int S2, int win) {
-  const int n = blockIdx.y, e = win - 1;
+// The clamped pass of layout L, grid (CLAMP_BLOCKS, N), after the tile pass
+// on the stream: adds the outputs with a clamped coordinate onto the buffer
+// with atomicAdd. q is monotone in i and j, so only an image whose
+// output-grid corners leave [0, S2 - 1] has such outputs; the blocks of
+// every other image return at once.
+template <typename L>
+__device__ __forceinline__ void scatter_clamped(L lay, const float* __restrict__ coef) {
+  const int n = blockIdx.y, e = lay.win - 1, S2 = lay.S2;
   float cf[6];
   load_coef(coef, n, cf);
   if (inside(coords(cf, 0, 0), S2) && inside(coords(cf, 0, e), S2) &&
       inside(coords(cf, e, 0), S2) && inside(coords(cf, e, e), S2)) {
     return;
   }
-  const long long plane = (long long)S2 * S2, oplane = (long long)win * win;
-  for (long long p = (long long)blockIdx.x * THREADS + threadIdx.x; p < oplane;
+  const typename L::Dst d = lay.dst(n, 0, 0);
+  const long long outputs = (long long)lay.win * lay.win;
+  for (long long p = (long long)blockIdx.x * THREADS + threadIdx.x; p < outputs;
        p += (long long)gridDim.x * THREADS) {
-    const Q q = coords(cf, (int)(p / win), (int)(p % win));
+    int i, j;
+    lay.output(p, i, j);
+    const Q q = coords(cf, i, j);
     if (inside(q, S2)) continue;
     const Tap t = tap_at(q, S2);
-    for (int c = 0; c < C; ++c) {
-      const float gv = __ldg(g + ((long long)n * C + c) * oplane + p);
+    for (int c = 0; c < lay.C; ++c) {
+      const float gv = __ldg(lay.flat(n, c, p));
       if (gv == 0.f) continue;
-      float* dp = dx2 + ((long long)n * C + c) * plane;
-      spread(dp + (long long)t.y0 * S2, dp + (long long)t.y1 * S2, t, gv);
+      spread(d.row(c, t.y0), d.row(c, t.y1), t, gv);
     }
   }
 }
 
-// Row y of the S2 x S2 buffer in the two-phase layout: row y >> 1 of plane
-// y & 1, planes (S2 / 2) x S2. `base` is the (n, c) offset of both planes.
-template <typename T>
-__device__ __forceinline__ T* phase_row(T* v0, T* v1, long long base, int y, int S2) {
-  return (y & 1 ? v1 : v0) + base + (long long)(y >> 1) * S2;
+// The interleaved adjoint: grid (min(tiles, SMs * SCATTER_BLOCKS), 1, 1);
+// g (N, C, win, win), dx2 (N, C, S2, S2).
+__global__ void __launch_bounds__(THREADS, SCATTER_BLOCKS)
+scatter_kernel(const float* __restrict__ g, const float* __restrict__ coef,
+               float* __restrict__ dx2, int N, int C, int S2, int win, bool dvec) {
+  scatter_tiles(Interleaved{g, dx2, N, C, S2, win}, coef, dvec);
+}
+
+// grid (CLAMP_BLOCKS, N), after scatter_kernel on the stream
+__global__ void __launch_bounds__(THREADS)
+scatter_clamped_kernel(const float* __restrict__ g, const float* __restrict__ coef,
+                       float* __restrict__ dx2, int C, int S2, int win) {
+  scatter_clamped(Interleaved{g, dx2, (int)gridDim.y, C, S2, win}, coef);
+}
+
+// The two-phase adjoint: grid as scatter_kernel; g (4, N, C, win/2, win/2),
+// dv0, dv1 (N, C, S2/2, S2).
+__global__ void __launch_bounds__(THREADS, SCATTER_BLOCKS)
+scatter2_kernel(const float* __restrict__ g, const float* __restrict__ coef,
+                float* __restrict__ dv0, float* __restrict__ dv1, int N, int C, int S2, int win,
+                bool dvec) {
+  scatter_tiles(TwoPhase{g, dv0, dv1, N, C, S2, win}, coef, dvec);
+}
+
+// grid (CLAMP_BLOCKS, N), after scatter2_kernel on the stream
+__global__ void __launch_bounds__(THREADS)
+scatter2_clamped_kernel(const float* __restrict__ g, const float* __restrict__ coef,
+                        float* __restrict__ dv0, float* __restrict__ dv1, int C, int S2,
+                        int win) {
+  scatter_clamped(TwoPhase{g, dv0, dv1, (int)gridDim.y, C, S2, win}, coef);
 }
 
 // grid: (ceil(win * win / THREADS), N), h2 = win / 2; v0, v1 (N, C, S2/2,
@@ -719,32 +860,19 @@ gather2_kernel(const float* __restrict__ v0, const float* __restrict__ v1,
   }
 }
 
-// grid as gather2_kernel; g (4, N, C, h2, h2); dv0, dv1 (N, C, S2/2, S2)
-// zeroed first
-__global__ void __launch_bounds__(THREADS)
-scatter2_kernel(const float* __restrict__ g, const float* __restrict__ coef,
-                float* __restrict__ dv0, float* __restrict__ dv1, int N, int C, int S2,
-                int win) {
-  const int h2 = win / 2, qplane = h2 * h2;
-  const int p = blockIdx.x * THREADS + threadIdx.x;
-  const int n = blockIdx.y;
-  if (p >= 4 * qplane) return;
-  const int q = p / qplane, r = p % qplane;
-  const Tap t = tap(coef + 6 * n, 2 * (r / h2) + (q >> 1), 2 * (r % h2) + (q & 1), S2);
-  const long long vplane = (long long)(S2 / 2) * S2;
-  for (int c = 0; c < C; ++c) {
-    const float gv = __ldg(g + (((long long)q * N + n) * C + c) * qplane + r);
-    if (gv == 0.f) continue;
-    const long long base = ((long long)n * C + c) * vplane;
-    spread(phase_row(dv0, dv1, base, t.y0, S2), phase_row(dv0, dv1, base, t.y1, S2), t, gv);
-  }
-}
-
-dim3 grid_for(int N, int win) {
-  return dim3((unsigned)(((long long)win * win + THREADS - 1) / THREADS), (unsigned)N);
-}
-
 bool aligned16(const void* p) { return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0; }
+
+// The adjoints' tile-pass grid: one persistent block per tile, at most
+// SCATTER_BLOCKS per SM.
+cudaError_t tile_blocks(int N, int S2, unsigned* blocks) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long tiles = (long long)N * ((S2 + SCATTER_TH - 1) / SCATTER_TH) *
+                          ((S2 + SCATTER_TW - 1) / SCATTER_TW);
+  *blocks = (unsigned)std::min<long long>(tiles, (long long)sms * SCATTER_BLOCKS);
+  return err;
+}
 
 }  // namespace
 
@@ -769,13 +897,9 @@ extern "C" int affine_warp_scatter(const float* g, const float* coef, float* dx2
   if ((long long)N * C * S2 == 0) return (int)cudaGetLastError();
   if (N > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long tiles = (long long)N * ((S2 + SCATTER_TH - 1) / SCATTER_TH) *
-                          ((S2 + SCATTER_TW - 1) / SCATTER_TW);
+  unsigned blocks = 0;
+  cudaError_t err = tile_blocks(N, S2, &blocks);
   if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)std::min<long long>(tiles, (long long)sms * SCATTER_BLOCKS);
   scatter_kernel<<<blocks, THREADS, 0, s>>>(g, coef, dx2, N, C, S2, win,
                                             (S2 & 3) == 0 && aligned16(dx2));
   err = cudaGetLastError();
@@ -792,21 +916,28 @@ extern "C" int affine_warp2_gather(const float* v0, const float* v1, const float
   if ((S2 | win) & 1) return (int)cudaErrorInvalidValue;
   if ((long long)N * C * win == 0) return (int)cudaGetLastError();
   if (N > 65535) return (int)cudaErrorInvalidValue;
-  gather2_kernel<<<grid_for(N, win), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      v0, v1, coef, out, N, C, S2, win);
+  const dim3 grid((unsigned)(((long long)win * win + THREADS - 1) / THREADS), (unsigned)N);
+  gather2_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(v0, v1, coef, out, N,
+                                                                        C, S2, win);
   return (int)cudaGetLastError();
 }
 
+// Both planes are written whole by the tile pass (no memset); the
+// clamped-output pass follows it on the stream.
 extern "C" int affine_warp2_scatter(const float* g, const float* coef, float* dv0, float* dv1,
                                     int N, int C, int S2, int win, void* stream) {
   if ((S2 | win) & 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t bytes = sizeof(float) * (size_t)N * C * (S2 / 2) * S2;
-  cudaError_t err = cudaMemsetAsync(dv0, 0, bytes, s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(dv1, 0, bytes, s);
-  if (err != cudaSuccess) return (int)err;
-  if ((long long)N * C * win == 0) return (int)cudaGetLastError();
+  if ((long long)N * C * S2 == 0) return (int)cudaGetLastError();
   if (N > 65535) return (int)cudaErrorInvalidValue;
-  scatter2_kernel<<<grid_for(N, win), THREADS, 0, s>>>(g, coef, dv0, dv1, N, C, S2, win);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned blocks = 0;
+  cudaError_t err = tile_blocks(N, S2, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  scatter2_kernel<<<blocks, THREADS, 0, s>>>(
+      g, coef, dv0, dv1, N, C, S2, win, (S2 & 3) == 0 && aligned16(dv0) && aligned16(dv1));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || win == 0) return (int)err;
+  scatter2_clamped_kernel<<<dim3(CLAMP_BLOCKS, (unsigned)N), THREADS, 0, s>>>(
+      g, coef, dv0, dv1, C, S2, win);
   return (int)cudaGetLastError();
 }

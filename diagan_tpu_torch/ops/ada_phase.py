@@ -16,11 +16,18 @@ the GPU kernels do not need.
 `affine_gather_2phase` is differentiable once in (v0, v1); its backward is
 the adjoint `affine_scatter2`, and coef gets no gradient (random draws; R1
 differentiates after the augment). Each half launches its CUDA kernel
-(csrc/affine_warp.cu: gather2_kernel, scatter2_kernel) for CUDA tensors and
-runs its plain-torch version for CPU tensors, and does nothing else:
-`affine_gather2_plain` (interleave the planes, `affine_gather_plain`, split
-by parity, as the JAX package's `_gather2_xla`) and `affine_scatter2_plain`
-(autograd through it).
+(csrc/affine_warp.cu: gather2_kernel; scatter2_kernel, then
+scatter2_clamped_kernel) for CUDA tensors and runs its plain-torch version
+for CPU tensors, and does nothing else: `affine_gather2_plain` (interleave
+the planes, `affine_gather_plain`, split by parity, as the JAX package's
+`_gather2_xla`) and `affine_scatter2_plain` (autograd through it).
+
+The adjoint is the interleaved adjoint's tile pass (ops/warp.py) with two
+address maps changed: it owns its tiles of the S2 x S2 buffer and writes
+every pixel of both planes once, with no memset and no global atomic
+outside its clamped-output pass. `_quarter_offsets` and `_plane_offsets`
+repeat those two maps in plain torch, and `_phase_tile_rows` the plane rows
+that each buffer tile writes, so that the CPU tests can check them.
 """
 from __future__ import annotations
 
@@ -30,7 +37,13 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
-from diagan_tpu_torch.ops.warp import _check, _check_coef, affine_gather_plain
+from diagan_tpu_torch.ops.warp import (
+    SCATTER_TILE,
+    _check,
+    _check_coef,
+    _tile_starts,
+    affine_gather_plain,
+)
 
 PARITIES = ((0, 0), (0, 1), (1, 0), (1, 1))  # (a, b) of Y_ab, in output order
 
@@ -58,6 +71,39 @@ def affine_scatter2_plain(gs, coef, s2):
         ys = affine_gather2_plain(*v, coef, 2 * h2)
         dv0, dv1 = torch.autograd.grad(ys, v, gs)
     return dv0, dv1
+
+
+def _quarter_offsets(n, c, win, device=None):
+    """The adjoint's map from outputs to its cotangent buffer: the flat
+    offset in the (4, N, C, win/2, win/2) quarter grids of output (i, j) of
+    image n, channel c, as an (N, C, win, win) int64 tensor. Output (i, j)
+    lies in quarter grid (i & 1) * 2 + (j & 1) at (i >> 1, j >> 1)."""
+    h2 = win // 2
+    idx = torch.arange(win, device=device)
+    i, j = idx[:, None], idx[None, :]
+    nc = torch.arange(n * c, device=device).reshape(n, c, 1, 1)
+    quarter = (i & 1) * 2 + (j & 1)
+    return ((quarter * (n * c) + nc) * h2 + (i >> 1)) * h2 + (j >> 1)
+
+
+def _plane_offsets(n, c, s2, device=None):
+    """The adjoint's map from buffer pixels to its planes: the flat offset
+    in the stacked (2, N, C, s2/2, s2) planes of pixel (y, x) of image n,
+    channel c, as an (N, C, s2, s2) int64 tensor. Row y lies in plane y & 1
+    at row y >> 1."""
+    idx = torch.arange(s2, device=device)
+    y, x = idx[:, None], idx[None, :]
+    nc = torch.arange(n * c, device=device).reshape(n, c, 1, 1)
+    return (((y & 1) * (n * c) + nc) * (s2 // 2) + (y >> 1)) * s2 + x
+
+
+def _phase_tile_rows(s2, tile=SCATTER_TILE):
+    """The plane rows that each row of the adjoint's buffer tiles writes:
+    (TI, 2, 2) [phase, (first, last)] inclusive. A tile's rows [r0, r1]
+    start at an even r0, so plane phi takes rows m with r0 <= 2m + phi <= r1."""
+    r0, r1 = _tile_starts(s2, tile[0])
+    rows = [torch.stack([(r0 - phi + 1) // 2, (r1 - phi) // 2], -1) for phi in (0, 1)]
+    return torch.stack(rows, 1)
 
 
 @functools.cache
@@ -102,7 +148,8 @@ def affine_scatter2(gs, coef, s2):
     """The adjoint alone (no autograd): (dv0, dv1), each (N, C, s2/2, s2)
     fp32, for the four quarter-grid cotangents gs (a sequence of four
     (N, C, win/2, win/2), or one (4, N, C, win/2, win/2) tensor); the kernel
-    on CUDA, the plain version on CPU."""
+    on CUDA, the plain version on CPU. The kernel owns its tiles and writes
+    every pixel of both planes, so they start from torch.empty."""
     coef = coef.float().contiguous()
     g = torch.stack(tuple(gs)) if not torch.is_tensor(gs) else gs
     if g.device.type == "cpu":
