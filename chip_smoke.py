@@ -38,7 +38,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernels (e.g. the parent commit's) in the same turns; the two-phase
      pair likewise, its gather in turns with the interleaved gather and
      grid_sample, its adjoint with grid_sample's backward and --against's
-     two-phase adjoint (--kernels-only stops here);
+     two-phase adjoint; kernel A's generic instance on the channels-last G
+     blur against cuDNN (--kernels-only stops here);
   4. the serving slice at full width (StyleGAN2-256, channel_multiplier 2,
      style_dim 512, n_mlp 8, random weights from a seed): save a checkpoint,
      run cli.generate, draw DRS samples, with the launch counts (per kernel,
@@ -64,7 +65,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      polyphase against interleaved at the same pad; ms per plain / path / R1
      step, peak device memory and a profile of one ADA-live step; the plain
      step polyphase / interleaved at the static pad / interleaved with the
-     trainer's pad buckets, and a profile of one polyphase ADA-live step.
+     trainer's pad buckets, and a profile of one polyphase ADA-live step;
+  8. the SNGAN-32 Dia-GAN path at full width (ngf 256, ndf 128), batch 64,
+     n_dis 5, on 50,000 synthetic images written in CIFAR-10's format:
+     cli.train_mimicry_phase1 for 30 steps with logit sweeps at 10, 20 and 30,
+     cli.train_mimicry_phase2 for 10 steps with ldr_conf_1.0_ratio_50 and the
+     twin DRS D, load_eval_models and DRS at batch 256 from the phase-2
+     checkpoint; no port kernel may launch on it (its work is cuDNN, cuBLAS
+     and PyTorch's own kernels); steps/s, ms per 50k sweep, DRS accepted/s,
+     peak memory and a profile of one phase-1 step;
+  8b. one fused SNGAN phase-2 step, card against CPU, injected draws.
 Each phase prints its start, in seconds since the script started.
 The last lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a card it exits 2 and prints no result.
@@ -188,9 +198,9 @@ def profile(fn, label, smi, tags):
     if total == 0:
         print(f"profile of {label}: the profiler recorded no device time (not measured)")
         return
-    print(f"profile of {label}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms (union of "
-          f"kernel intervals; kernel times sum to {total:.2f} ms), idle share "
-          f"{1 - busy / wall_ms:.4f} [{smi}]")
+    print(f"profile of {label}: wall {wall_ms:.2f} ms, {len(spans)} device events, device "
+          f"busy {busy:.2f} ms (union of kernel intervals; kernel times sum to {total:.2f} ms), "
+          f"idle share {1 - busy / wall_ms:.4f} [{smi}]")
     for name, ms, count in rows[:12]:
         print(f"  {ms:9.3f} ms {100 * ms / total:6.2f}%  x{count:<4d} {name[:90]}")
     for tag in tags:
@@ -1353,6 +1363,43 @@ def time_fir_instances(dev, rng, ch, k4, smi):
     return {inst: entry for inst, (_, entry) in largest.items()}
 
 
+def time_fir_generic(dev, rng, ch, k4, smi):
+    """Kernel A's generic instance (A0) at one shape that the JAX package's
+    NHWC FIR (`_fir2d_nhwc`, #2) computes: the SIZE px G upsample blur with the
+    input channels-last, which fir_instance sends to the generic instance.
+    Device time (graph_ms) in turns with one cuDNN depthwise call on the same
+    channels-last input, its plain version and its bytes bound."""
+    import torch.nn.functional as F
+
+    from diagan_tpu_torch.ops import _build, upfirdn2d, upfirdn2d_plain
+    from diagan_tpu_torch.ops.upfirdn2d import fir_instance
+
+    c, k16 = ch[SIZE], k4 * 4
+    x = torch.randn((16, c, SIZE + 1, SIZE + 1), generator=rng, device=dev)
+    x = x.contiguous(memory_format=torch.channels_last)
+    inst = fir_instance(4, 4, 1, 1, x.dtype, torch.channels_last)
+    check(inst == "generic", f"the channels-last blur takes {inst}")
+    w = k16.expand(c, 1, 4, 4).contiguous()
+    before = _build.FIR_INSTANCES["generic"]
+    y = upfirdn2d(x, k16, 1, 1, (1, 1))
+    check(_build.FIR_INSTANCES["generic"] == before + 1, "the generic instance did not launch")
+    err = max_err(y, upfirdn2d_plain(x, k16, 1, 1, (1, 1)))
+    check(err <= 1e-5 * y.abs().max().item(), f"generic instance err {err}")
+    check(max_err(F.conv2d(x, w, padding=1, groups=c), y) <= 1e-5 * y.abs().max().item(),
+          "depthwise yardstick disagrees with the generic instance")
+    ms = in_turns({"a": lambda: upfirdn2d(x, k16, 1, 1, (1, 1)),
+                   "lib": lambda: F.conv2d(x, w, padding=1, groups=c)})
+    (a1, a2), (l1, l2) = ms["a"], ms["lib"]
+    plain = cuda_ms(lambda: upfirdn2d_plain(x, k16, 1, 1, (1, 1)), iters=2, warmup=1)
+    b_p, by = bound((x.numel() + y.numel()) * 4, y.numel() * 16 * 2)
+    print(f"kernel A generic (A0), G upsample blur channels-last {tuple(x.shape)} -> "
+          f"{tuple(y.shape)} fp32 (the NHWC FIR #2's layout): {a1:.4f} / {a2:.4f} ms, cuDNN "
+          f"depthwise on the same channels-last input {l1:.4f} / {l2:.4f} ms (device time, two "
+          f"turns), plain {plain:.4f} ms, bound {b_p:.4f} ms ({by}), {2 * b_p / (a1 + a2):.2f} "
+          f"of the bound; max abs err vs plain {err:.3e} [{smi}]")
+    del x, y
+
+
 def time_warp2(dev, rng, smi, errs, against=None):
     """The two-phase warp pair at the largest bucket on one batch of ADA
     draws at p = 1 (the kernels-line entries, without launches), as
@@ -1524,6 +1571,220 @@ def time_training(tr, smi):
                 f"(batch 16, {SIZE} px)", smi, tags)
 
 
+SNGAN_N, SNGAN_BS, SNGAN_NDIS = 50000, 64, 5  # CIFAR-10's size; the reference's batch, n_dis
+
+
+def write_cifar10(root, images):
+    """uint8 (N, 32, 32, 3) images as root/cifar-10-batches-py/data_batch_{1..5},
+    in CIFAR-10's python pickle format (what data/sources.py:load_cifar10 reads)."""
+    import pickle
+
+    base = root / "cifar-10-batches-py"
+    base.mkdir(parents=True)
+    for b, idx in enumerate(np.array_split(np.arange(len(images)), 5)):
+        rows = images[idx].transpose(0, 3, 1, 2).reshape(len(idx), -1)
+        with open(base / f"data_batch_{b + 1}", "wb") as f:
+            pickle.dump({b"data": rows, b"labels": [0] * len(idx)}, f)
+    return root
+
+
+def no_kernel_launched(path):
+    """The SNGAN path has no port kernel: every launch count stays 0."""
+    from diagan_tpu_torch.ops import _build
+
+    launched = {k: v for counts in (_build.LAUNCHES, _build.FIR_INSTANCES)
+                for k, v in counts.items() if v}
+    check(not launched, f"{path} launched port kernels {launched}")
+
+
+def sngan_path(dev, smi, work):
+    """The SNGAN-32 Dia-GAN path at full width (ngf 256, ndf 128), batch 64,
+    n_dis 5, hinge, fp32, through its CLIs on 50,000 synthetic CIFAR-format
+    images: phase 1 for 30 steps with logit sweeps at 10, 20 and 30, phase 2
+    for 10 steps from that checkpoint with ldr_conf_1.0_ratio_50 and the twin
+    DRS discriminator, then load_eval_models and DRS at batch 256 from the
+    phase-2 checkpoint. No port kernel may launch. Then steps/s of each
+    phase, ms per 50k sweep, DRS accepted/s, peak memory and a profile of one
+    phase-1 step."""
+    import pickle
+
+    from diagan_tpu_torch.cli import train_mimicry_phase1, train_mimicry_phase2
+    from diagan_tpu_torch.data.synthetic import synthetic_natural
+    from diagan_tpu_torch.eval.drs import DRS
+    from diagan_tpu_torch.eval.evaluate import load_eval_models, make_disc_fn, make_gen_fn
+    from diagan_tpu_torch.models.registry import get_gan_model
+    from diagan_tpu_torch.ops import _build
+    from diagan_tpu_torch.train.steps import step_draws
+
+    t0 = time.perf_counter()
+    data = write_cifar10(work / "cifar10", synthetic_natural(SNGAN_N, 32, seed=11)[0])
+    print(f"dataset: {SNGAN_N} synthetic 32 px images in CIFAR-10's format in "
+          f"{time.perf_counter() - t0:.2f} s")
+    common = ["-r", str(data), "--work_dir", str(work), "--device", dev.type,
+              "--batch_size", str(SNGAN_BS), "--n_dis", str(SNGAN_NDIS), "--seed", str(SEED)]
+
+    def finite(tr, keys):
+        m = {k: float(v) for k, v in tr.metrics.items()}
+        check(all(math.isfinite(v) for v in m.values()), f"non-finite metrics {m}")
+        check(set(keys) <= set(m), f"metrics {sorted(m)}")
+        return "; ".join(f"{k} {v:.4f}" for k, v in m.items())
+
+    def steps_per_s(tr, start, n=10):
+        fused = tr.fused_step
+        fused(start, step_draws(SEED, start, dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(start + 1, start + 1 + n):
+            fused(s, step_draws(SEED, s, dev))
+        torch.cuda.synchronize()
+        return n / (time.perf_counter() - t0)
+
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    tr1 = train_mimicry_phase1.main(common + [
+        "--exp_name", "p1", "--no_schedule_override", "--num_steps", "30",
+        "--logit_save_steps", "10", "--save_logit_after", "10", "--stop_save_logit_after", "30"])
+    torch.cuda.synchronize()
+    t_p1 = time.perf_counter() - t0
+    no_kernel_launched("train_mimicry_phase1")
+    print(f"train_mimicry_phase1 (30 steps, 3 sweeps of {SNGAN_N}): {t_p1:.2f} s, metrics "
+          f"{finite(tr1, ('errD', 'errG', 'D(x)', 'D(G(z))'))}; no port kernel launched")
+    with open(work / "p1" / "logits_netD_eval.pkl", "rb") as f:
+        logits = pickle.load(f)
+    check(list(logits) == [10, 20, 30] and all(type(k) is int for k in logits),
+          f"logit steps {list(logits)}")
+    check(all(v.dtype == np.float64 and v.shape == (SNGAN_N,) and np.isfinite(v).all()
+              for v in logits.values()), "logits dtype, shape or values")
+    for net in ("netG", "netD"):
+        check((work / "p1" / "checkpoints" / net / f"{net}_30_steps.pth").is_file(),
+              f"phase 1 wrote no {net} checkpoint")
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    tr2 = train_mimicry_phase2.main(common + [
+        "--exp_name", "p2", "--baseline_exp_name", "p1", "--p1_step", "30", "--num_steps", "40",
+        "--resample_score", "ldr_conf_1.0_ratio_50"])
+    torch.cuda.synchronize()
+    t_p2 = time.perf_counter() - t0
+    no_kernel_launched("train_mimicry_phase2")
+    check(tr2.global_step == 40 and tr2.d_drs.count == tr2.d.count == 40 * SNGAN_NDIS,
+          f"phase 2 ended at step {tr2.global_step}, D updates {tr2.d.count}")
+    for net in ("netG", "netD", "netD_drs"):
+        check((work / "p2" / "checkpoints" / net / f"{net}_40_steps.pth").is_file(),
+              f"phase 2 wrote no {net} checkpoint")
+    print(f"train_mimicry_phase2 (10 steps, ldr_conf_1.0_ratio_50, twin DRS D): {t_p2:.2f} s, "
+          f"metrics {finite(tr2, ('errD', 'errG', 'errD_drs'))}; no port kernel launched")
+    peak = torch.cuda.max_memory_allocated()
+
+    _build.reset_launches()
+    gen, disc = load_eval_models(get_gan_model("cifar10", drs=True, device=dev), work / "p2", 40,
+                                 use_drs=True)
+    t0 = time.perf_counter()
+    drs = DRS(make_gen_fn(gen), make_disc_fn(disc), 128,
+              generator=torch.Generator(dev).manual_seed(SEED + 3), batch_size=256, device=dev)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    accepted = drs.generate_images(4096)
+    t_drs = time.perf_counter() - t0
+    no_kernel_launched("DRS (SNGAN)")
+    check(accepted.shape == (4096, 32, 32, 3) and np.isfinite(accepted).all(), "SNGAN DRS output")
+    acc = drs.accepted / drs.proposed
+    check(0.0 < acc < 1.0, f"SNGAN DRS acceptance {acc}")
+    print(f"SNGAN DRS batch 256: warm-up 50 batches in {t_warm:.2f} s; 4096 accepted of "
+          f"{drs.proposed} proposed (acceptance {acc:.4f}) in {t_drs:.2f} s = "
+          f"{4096 / t_drs:.2f} accepted/s; no port kernel launched [{smi}]")
+
+    p1_sps, p2_sps = steps_per_s(tr1, 30), steps_per_s(tr2, 40)
+    sweep = [0.0, 0.0]
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr1.recorder.sweep(tr1.d.module, tr1.source)
+        torch.cuda.synchronize()
+        sweep[i] = (time.perf_counter() - t0) * 1e3
+    print(f"SNGAN-32 batch {SNGAN_BS} n_dis {SNGAN_NDIS} fp32: phase 1 {p1_sps:.2f} steps/s, "
+          f"phase 2 (with the twin D) {p2_sps:.2f} steps/s (host clock, 10 synchronised steps); "
+          f"logit sweep of {SNGAN_N} at batch 256: {sweep[0]:.2f} / {sweep[1]:.2f} ms; peak "
+          f"device memory of the training phases {(peak - held) / 2**30:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB that earlier phases still held [{smi}]")
+    profile(lambda: tr1.fused_step(41, step_draws(SEED, 41, dev)),
+            f"one SNGAN-32 phase-1 step (batch {SNGAN_BS}, n_dis {SNGAN_NDIS})", smi, ())
+    del tr1, tr2, drs, gen, disc
+
+
+def sngan_step_card_vs_cpu(dev, smi):
+    """One fused SNGAN step with the twin D (phase 2), card against CPU, from
+    the same weights and the same injected draws, at width 64, batch 16,
+    n_dis 2: every Adam update's gradients and the metrics within
+    1e-3 x max(1, max|.|)."""
+    import copy
+
+    from diagan_tpu_torch.data.arrays import ArrayDataset
+    from diagan_tpu_torch.data.pipeline import DeviceDataSource
+    from diagan_tpu_torch.data.synthetic import synthetic_natural
+    from diagan_tpu_torch.models.registry import OptSpec
+    from diagan_tpu_torch.models.sngan import SNGANDiscriminator32, SNGANGenerator32
+    from diagan_tpu_torch.train.state import NetState
+    from diagan_tpu_torch.train.steps import StepConfig, make_fused_step
+
+    bs, n_dis, width, n = 16, 2, 64, 64
+    torch.manual_seed(SEED)
+    nets0 = [SNGANGenerator32(ngf=width, device="cpu"), SNGANDiscriminator32(ndf=width, device="cpu"),
+             SNGANDiscriminator32(ndf=width, device="cpu")]
+    ds = ArrayDataset.from_images(synthetic_natural(n, 32, seed=13)[0])
+    rng = np.random.default_rng(SEED)
+    draws = {k: [torch.from_numpy(rng.integers(0, n, bs)) for _ in range(n_dis)]
+             for k in ("real", "drs")}
+    draws.update({k: [torch.from_numpy(rng.standard_normal((bs, 128)).astype(np.float32))
+                      for _ in range(n_dis)] for k in ("z", "drs_z", "g_z")})
+
+    class Draws:
+        def __init__(self, d):
+            self.d = d
+
+        def indices(self, kind, i, source, n):
+            return draws[kind][i].to(self.d)
+
+        def normal(self, kind, i, n, nz, device):
+            return draws[kind][i].to(device)
+
+    cfg = StepConfig(n_dis=n_dis, batch_size=bs, nz=128, loss_type="hinge", drs_loss_type="ns",
+                     model="sngan", gold=False, gold_step=0, topk=False, epoch_steps=n // bs,
+                     use_drs=True)
+    out = []
+    for d in (torch.device("cpu"), dev):
+        spec, grads = OptSpec(2e-4, (0.0, 0.9)), {}
+        nets = [NetState(copy.deepcopy(m).to(d), spec, 100, "linear", ups)
+                for m, ups in zip(nets0, (1, n_dis, n_dis))]
+        for name, net in zip(("G", "D", "D_drs"), nets):
+            net.optim.register_step_pre_hook(
+                lambda opt, args, kwargs, name=name, net=net: grads.setdefault(name, []).append(
+                    [p.grad.detach().cpu().clone() for p in net.module.parameters()]))
+        source = DeviceDataSource(ds, weights=np.linspace(0.1, 1.0, n), device=d)
+        fused = make_fused_step(*nets, cfg, source, DeviceDataSource(ds, device=d))
+        metrics = {k: float(v) for k, v in fused(5, Draws(d)).items()}
+        out.append((metrics, grads))
+    (m_cpu, g_cpu), (m_card, g_card) = out
+    m_err = max(abs(m_card[k] - m_cpu[k]) / max(1.0, abs(m_cpu[k])) for k in m_cpu)
+    check(m_cpu.keys() == m_card.keys() and m_err <= 1e-3, f"metrics {m_cpu} vs {m_card}")
+    worst = {}
+    for name, updates in g_cpu.items():
+        check(len(updates) == len(g_card[name]), f"{name}: update counts differ")
+        for want_all, got_all in zip(updates, g_card[name]):
+            for want, got in zip(want_all, got_all):
+                scale = max(1.0, want.abs().max().item())
+                err = max_err(got, want)
+                check(err <= 1e-3 * scale, f"{name} grad err {err} > 1e-3 x {scale}")
+                worst[name] = max(worst.get(name, 0.0), err / scale)
+    print(f"card vs CPU, one SNGAN-32 phase-2 step (width {width}, batch {bs}, n_dis {n_dis}, "
+          f"injected draws, fp32, TF32 off): losses rel err {m_err:.3e}; gradients max abs err "
+          f"/ max(1, max|g|) by net {({k: f'{v:.3e}' for k, v in worst.items()})} (tol 1e-3) "
+          f"[{smi}]")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -1636,6 +1897,7 @@ def main(argv=None):
     # beside the interleaved gather and grid_sample
     phase("3d. kernel A's instances against cuDNN; the warp pairs")
     fir_kernels = time_fir_instances(dev, rng_b, ch, k4, smi)
+    time_fir_generic(dev, rng_b, ch, k4, smi)
     for inst, k in fir_kernels.items():
         k["max_abs_err"] = fir_errs[inst]
     against = against_warp(args.against) if args.against else None
@@ -1817,6 +2079,13 @@ def main(argv=None):
           f"training {launches_train}")
     print(f"kernel A launches by instance on the main paths: serving {fir_gen} + {fir_drs}; "
           f"training {fir_train}; in all {fir_total}")
+
+    # 8. the SNGAN-32 Dia-GAN path, which has no port kernel
+    phase("8. the SNGAN-32 path")
+    (work / "sngan").mkdir()
+    sngan_path(dev, smi, work / "sngan")
+    phase("8b. one SNGAN step, card against CPU")
+    sngan_step_card_vs_cpu(dev, smi)
 
     shutil.rmtree(work, ignore_errors=True)
     phase("done")

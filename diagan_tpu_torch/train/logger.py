@@ -1,4 +1,10 @@
-"""Image-grid output: uint8 quantization and a PNG writer.
+"""Training logger and image-grid output (counterpart of
+diagan_tpu/train/logger.py).
+
+Logger: stdout, JSONL scalars (the reference's names: errD, errG, errD_drs,
+D(x), D(G(z)), lr_{i}, topk_rate), PNG sample grids under `{log_dir}/images/`,
+and TensorBoard only where torch's SummaryWriter imports (the card's machine
+has no TensorBoard).
 
 The PNG is written with zlib and struct alone (8-bit grayscale or RGB, no
 filtering), so the port needs no imaging library; the machine with the card
@@ -6,8 +12,11 @@ has none. Same grid layout as diagan_tpu/train/logger.py:save_image_grid.
 """
 from __future__ import annotations
 
+import json
 import struct
+import time
 import zlib
+from pathlib import Path
 
 import numpy as np
 
@@ -56,3 +65,42 @@ def save_image_grid(images, path, nrow: int = 8, pad: int = 2):
     if c == 1:
         grid = grid[..., 0]
     return write_png(path, grid)
+
+
+class Logger:
+    def __init__(self, log_dir, use_tensorboard=True):
+        self.log_dir = Path(log_dir)
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self._jsonl = open(self.log_dir / "scalars.jsonl", "a")
+        self._tb = None
+        if use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                SummaryWriter = None
+            if SummaryWriter is not None:
+                self._tb = SummaryWriter(str(self.log_dir / "tb"), flush_secs=30)
+
+    def write_scalars(self, step: int, scalars: dict):
+        rec = {"step": int(step), "time": time.time()}
+        for k, v in scalars.items():
+            rec[k] = float(v)
+            if self._tb is not None:
+                self._tb.add_scalar(k, float(v), int(step))
+        self._jsonl.write(json.dumps(rec) + "\n")
+        self._jsonl.flush()
+
+    def print_log(self, step: int, num_steps: int, scalars: dict, time_taken: float):
+        parts = " | ".join(f"{k}: {float(v):.4f}" for k, v in scalars.items())
+        print(f"INFO: [Step {step}/{num_steps}] {parts} ({time_taken:.4f} sec/idx)", flush=True)
+
+    def vis_images(self, step: int, images, nrow: int = 8, name="fake_samples"):
+        """images: (N, H, W, C) in [-1, 1] -> one PNG grid."""
+        path = self.log_dir / "images" / f"{name}_step_{step}.png"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        save_image_grid(np.asarray(images), path, nrow=nrow)
+
+    def close(self):
+        self._jsonl.close()
+        if self._tb is not None:
+            self._tb.close()

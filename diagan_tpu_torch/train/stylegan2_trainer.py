@@ -58,6 +58,7 @@ from diagan_tpu_torch.models.losses import (
     path_length_penalty,
     r1_penalty,
 )
+from diagan_tpu_torch.train.state import load_moments
 
 EMA_DECAY = 0.5 ** (32 / (10 * 1000))
 
@@ -67,16 +68,6 @@ def reg_ratio_adam(params, lr, reg_every):
     learning rate and betas; reg_every=0 (regulariser off) means r = 1."""
     ratio = reg_every / (reg_every + 1) if reg_every else 1.0
     return torch.optim.Adam(params, lr=lr * ratio, betas=(0.0**ratio, 0.99**ratio), eps=1e-8)
-
-
-def _load_moments(optim, state):
-    """Restore Adam's moments and step counts but keep this run's learning
-    rate and betas (a torch optimizer's state_dict also carries those; the
-    JAX trainer's optax state does not)."""
-    hyper = [{k: v for k, v in g.items() if k != "params"} for g in optim.param_groups]
-    optim.load_state_dict(state)
-    for group, h in zip(optim.param_groups, hyper):
-        group.update(h)
 
 
 def _to_device_u8(images, device, slab=1024):
@@ -352,13 +343,13 @@ class StyleGAN2Trainer:
         self.gen.load_state_dict(raw["g"])
         self.disc.load_state_dict(raw["d"])
         self.g_ema.load_state_dict(raw["g_ema"])
-        _load_moments(self.g_optim, raw["g_optim"])
-        _load_moments(self.d_optim, raw["d_optim"])
+        load_moments(self.g_optim, raw["g_optim"])
+        load_moments(self.d_optim, raw["d_optim"])
         self.pl_mean = torch.tensor(float(raw.get("pl_mean", 0.0)), device=self.device)
         if self.drs_disc is not None:
             self.drs_disc.load_state_dict(raw.get("drs_d", raw["d"]))
             if "drs_d_optim" in raw:
-                _load_moments(self.drs_optim, raw["drs_d_optim"])
+                load_moments(self.drs_optim, raw["drs_d_optim"])
         self.ada_aug_p = float(raw.get("ada_aug_p", 0.0))
         if self.ada is not None:
             self.ada.ada_aug_p = self.ada_aug_p

@@ -1,6 +1,7 @@
-"""Weight bridge: the JAX package's Flax StyleGAN2 params -> the port's state_dicts.
+"""Weight bridge: the JAX package's Flax StyleGAN2 and SNGAN variables -> the
+port's state_dicts.
 
-Input is a Flax param tree as nested dicts of numpy arrays (what
+Input is a Flax variable tree as nested dicts of numpy arrays (what
 `jax.device_get(variables["params"])` gives); this module never imports jax.
 Every leaf goes through exactly one rule; a leaf no rule knows raises, and
 `load_state_dict` (strict) then checks that no port parameter was missed.
@@ -13,7 +14,14 @@ Layout conversions:
   - dense kernel (I, O) -> weight (O, I); the discriminator's first dense
     layer reads a flatten, whose rows go from the JAX (H, W, C) order to the
     port's (C, H, W) order;
-  - synthesis input (1, 4, 4, C) -> (1, C, 4, 4).
+  - synthesis input (1, 4, 4, C) -> (1, C, 4, 4);
+  - SNGAN (torch-mimicry's key layout, models/sngan.py): the generator's l1
+    output rows go from the Flax (y, x, c) reshape to torch-mimicry's (c, y,
+    x) one (the inverse of diagan_tpu/utils/mimicry_import.py:_bottom_dense);
+    BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
+    (num_batches_tracked 0); a spectral layer's `u` (1, out) -> `weight_u`
+    (out,), and its stored sigma is dropped: every forward recomputes it from
+    (W, u) (models/layers.py).
 """
 from __future__ import annotations
 
@@ -55,6 +63,8 @@ def _convert(params, rule, what):
             raise ValueError(f"{what} bridge: no rule for Flax leaf {'/'.join(path)} "
                              f"with shape {arr.shape}")
         key, value = hit
+        if key is None:  # consumed, with no counterpart in the port
+            continue
         if key in sd:
             raise ValueError(f"{what} bridge: two leaves map to {key}")
         sd[key] = torch.tensor(np.ascontiguousarray(value))
@@ -137,3 +147,94 @@ def _discriminator_rule(path, arr):
 def discriminator_state_dict(params):
     """Flax StyleGAN2Discriminator params -> the port discriminator's state_dict."""
     return _convert(params, _discriminator_rule, "discriminator")
+
+
+def _bn_leaf(prefix, leaf, arr):
+    names = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+    return (f"{prefix}.{names[leaf]}", arr) if leaf in names else None
+
+
+_G_BLOCK = {"BatchNorm_0": "b1", "BatchNorm_1": "b2", "Conv_0": "c1", "Conv_1": "c2",
+            "Conv_2": "c_sc"}
+
+
+def _sngan_generator_rule(ngf, top):
+    def rule(path, arr):
+        coll, head, rest = path[0], path[1], path[2:]
+        if coll == "params" and head == "Dense_0" and rest == ("kernel",):
+            nz, b = arr.shape[0], int(round((arr.shape[1] // ngf) ** 0.5))
+            return "l1.weight", arr.T.reshape(b, b, ngf, nz).transpose(2, 0, 1, 3).reshape(-1, nz)
+        if coll == "params" and head == "Dense_0" and rest == ("bias",):
+            b = int(round((arr.shape[0] // ngf) ** 0.5))
+            return "l1.bias", arr.reshape(b, b, ngf).transpose(2, 0, 1).reshape(-1)
+        m = re.fullmatch(r"GBlock_(\d+)", head)
+        if m and len(rest) == 2 and rest[0] in _G_BLOCK:
+            prefix = f"block{int(m.group(1)) + 2}.{_G_BLOCK[rest[0]]}"
+        elif head in ("BatchNorm_0", "Conv_0") and len(rest) == 1:
+            prefix = f"b{top}" if head == "BatchNorm_0" else f"c{top}"
+            rest = (head, *rest)
+        else:
+            return None
+        layer, leaf = rest
+        if layer.startswith("BatchNorm"):
+            if (coll == "params") != (leaf in ("scale", "bias")):
+                return None
+            return _bn_leaf(prefix, leaf, arr)
+        if coll == "params" and leaf == "kernel":
+            return f"{prefix}.weight", _conv(arr)
+        if coll == "params" and leaf == "bias":
+            return f"{prefix}.bias", arr
+        return None
+    return rule
+
+
+def sngan_generator_state_dict(variables):
+    """Flax SNGANGenerator{32,64} variables {"params", "batch_stats"} -> the
+    port generator's state_dict (torch-mimicry's layout)."""
+    params = variables["params"]
+    n_blocks = sum(1 for k in params if k.startswith("GBlock_"))
+    ngf = params["GBlock_0"]["Conv_0"]["kernel"].shape[2]
+    tree = {"params": params, "batch_stats": variables["batch_stats"]}
+    sd = _convert(tree, _sngan_generator_rule(ngf, n_blocks + 2), "SNGAN generator")
+    for key in [k for k in sd if k.endswith(".running_mean")]:
+        sd[key.replace("running_mean", "num_batches_tracked")] = torch.tensor(0)
+    return sd
+
+
+def _sngan_discriminator_rule(head_name):
+    def rule(path, arr):
+        coll, head, rest = path[0], path[1], path[2:]
+        if head == "SNDense_0":
+            prefix, inner = head_name, rest
+        else:
+            m = re.fullmatch(r"DBlock_(\d+)", head)
+            if head == "DBlockOptimized_0":
+                block = "block1"
+            elif m:
+                block = f"block{int(m.group(1)) + 2}"
+            else:
+                return None
+            c = re.fullmatch(r"SNConv_([012])", rest[0]) if rest else None
+            if c is None:
+                return None
+            prefix, inner = f"{block}.{('c1', 'c2', 'c_sc')[int(c.group(1))]}", rest[1:]
+        layer = "Dense_0" if head == "SNDense_0" else "Conv_0"
+        if coll == "params" and inner == (layer, "kernel"):
+            return f"{prefix}.weight", arr.T if layer == "Dense_0" else _conv(arr)
+        if coll == "params" and inner == (layer, "bias"):
+            return f"{prefix}.bias", arr
+        if coll == "spectral" and inner == ("SpectralNorm_0", f"{layer}/kernel/u"):
+            return f"{prefix}.weight_u", arr.reshape(-1)
+        if coll == "spectral" and inner == ("SpectralNorm_0", f"{layer}/kernel/sigma"):
+            return None, None
+        return None
+    return rule
+
+
+def sngan_discriminator_state_dict(variables):
+    """Flax SNGANDiscriminator{32,64} variables {"params", "spectral"} -> the
+    port discriminator's state_dict (torch-mimicry's layout)."""
+    params = variables["params"]
+    n_blocks = 1 + sum(1 for k in params if k.startswith("DBlock_"))
+    tree = {"params": params, "spectral": variables["spectral"]}
+    return _convert(tree, _sngan_discriminator_rule(f"l{n_blocks + 1}"), "SNGAN discriminator")

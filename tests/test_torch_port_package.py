@@ -10,23 +10,40 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from diagan_tpu_torch import resolve_device  # noqa: E402
-from diagan_tpu_torch.cli import generate, train_ffhq, train_ffhq_phase2  # noqa: E402
+from diagan_tpu_torch.cli import (  # noqa: E402
+    generate,
+    train_ffhq,
+    train_ffhq_phase2,
+    train_mimicry_phase1,
+    train_mimicry_phase2,
+)
+from diagan_tpu_torch.data.arrays import ArrayDataset  # noqa: E402
+from diagan_tpu_torch.data.pipeline import DeviceDataSource  # noqa: E402
 from diagan_tpu_torch.eval.drs import DRS  # noqa: E402
 from diagan_tpu_torch.eval.evaluate import Sampler  # noqa: E402
+from diagan_tpu_torch.models.registry import get_gan_model  # noqa: E402
+from diagan_tpu_torch.models.sngan import SNGANDiscriminator32, SNGANGenerator32  # noqa: E402
 from diagan_tpu_torch.models.stylegan2 import (  # noqa: E402
     StyleGAN2Discriminator,
     StyleGAN2Generator,
 )
 from diagan_tpu_torch.train.stylegan2_trainer import StyleGAN2Trainer  # noqa: E402
+from diagan_tpu_torch.train.trainer import LogTrainer  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(jax|flax|optax|diagan_tpu)(?:\.|\s|$)",
                         re.MULTILINE)
+# the card's machine has no matplotlib, Pillow or TensorBoard: the port may
+# import them only inside the functions that need them
+_MODULE_LEVEL_OPTIONAL = re.compile(
+    r"^(?:import|from)\s+(matplotlib|PIL|tensorboard|torch\.utils\.tensorboard)(?:\.|\s|$)",
+    re.MULTILINE)
 
 
 def _port_sources():
@@ -42,6 +59,12 @@ def test_port_sources_import_no_jax_and_no_jax_package():
     assert found == []
 
 
+def test_port_sources_import_no_optional_package_at_module_level():
+    found = [(p.relative_to(REPO), m.group(0).strip())
+             for p in _port_sources() for m in _MODULE_LEVEL_OPTIONAL.finditer(p.read_text())]
+    assert found == []
+
+
 def test_port_imports_with_jax_unavailable():
     """Every module of the port, and chip_smoke, imports in a process where
     importing jax or diagan_tpu fails."""
@@ -50,6 +73,7 @@ def test_port_imports_with_jax_unavailable():
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
         "sys.modules['diagan_tpu'] = None\n"
+        "sys.modules['matplotlib'] = None\n"
         "import importlib, pkgutil\n"
         "import diagan_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(diagan_tpu_torch.__path__, "
@@ -64,7 +88,9 @@ def test_port_imports_with_jax_unavailable():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 16 and "diagan_tpu_torch.ops.ada_phase" in names
+    assert len(names) >= 30 and "diagan_tpu_torch.ops.ada_phase" in names
+    assert {"diagan_tpu_torch.cli.train_mimicry_phase1", "diagan_tpu_torch.train.trainer",
+            "diagan_tpu_torch.data.pipeline", "diagan_tpu_torch.utils.plot"} <= set(names)
 
 
 def _no_card(monkeypatch):
@@ -82,8 +108,17 @@ def _no_card(monkeypatch):
     lambda: train_ffhq_phase2.main(["--size", "16", "--work_dir", "unused",
                                     "--resample_score", "ldr"]),
     lambda: StyleGAN2Trainer("unused", None, None, None, 1),
+    lambda: train_mimicry_phase1.main(["--work_dir", "unused"]),
+    lambda: train_mimicry_phase2.main(["--work_dir", "unused", "--resample_score", "ldr"]),
+    lambda: LogTrainer("unused", None, None, 1),
+    lambda: DeviceDataSource(ArrayDataset.from_images(np.zeros((2, 4, 4, 3), np.uint8))),
+    lambda: get_gan_model("cifar10"),
+    lambda: SNGANGenerator32(ngf=8),
+    lambda: SNGANDiscriminator32(ndf=8),
 ], ids=["resolve_device", "generator", "discriminator", "drs", "sampler", "generate_cli",
-        "train_ffhq_cli", "train_ffhq_phase2_cli", "trainer"])
+        "train_ffhq_cli", "train_ffhq_phase2_cli", "trainer", "mimicry_phase1_cli",
+        "mimicry_phase2_cli", "log_trainer", "device_data_source", "get_gan_model",
+        "sngan_generator", "sngan_discriminator"])
 def test_entry_points_without_device_raise_when_no_card(monkeypatch, entry):
     _no_card(monkeypatch)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -95,3 +130,6 @@ def test_cpu_is_used_only_when_named(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     g = StyleGAN2Generator(size=16, style_dim=32, n_mlp=2, width_scale=1 / 16, device="cpu")
     assert next(g.parameters()).device.type == "cpu"
+    bundle = get_gan_model("cifar10", drs=True, device="cpu")
+    assert all(next(m.parameters()).device.type == "cpu"
+               for m in (bundle.gen, bundle.disc, bundle.disc_drs))
