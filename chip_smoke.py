@@ -74,7 +74,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      checkpoint; no port kernel may launch on it (its work is cuDNN, cuBLAS
      and PyTorch's own kernels); steps/s, ms per 50k sweep, DRS accepted/s,
      peak memory and a profile of one phase-1 step;
-  8b. one fused SNGAN phase-2 step, card against CPU, injected draws.
+  8b. one fused SNGAN phase-2 step, card against CPU, injected draws;
+  9. evaluation (random Inception weights, from a seed): 9a the FID
+     InceptionV3 card against CPU on 4 images; 9b cli.eval_gan_drs at its
+     full counts (FID 50k/50k, IS 50k, PR 10k/10k, DRS at batch 256) on the
+     SNGAN phase-2 run, KID 10k/10k, and cli.eval_gan_with_index against the
+     phase-1 logits, every score finite and no port kernel launched, with
+     the wall seconds of real features, fake generation, featurisation and
+     sqrtm; 9c FID with DRS of the StyleGAN2-256 phase-2 checkpoint (the
+     eps-jitter sqrtm), whose kernel A and fused-act launches join the
+     kernels line; 9d one profiled Inception batch of 128 at 299 and phase
+     9's peak device memory.
 Each phase prints its start, in seconds since the script started.
 The last lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a card it exits 2 and prints no result.
@@ -1785,6 +1795,209 @@ def sngan_step_card_vs_cpu(dev, smi):
           f"[{smi}]")
 
 
+EVAL_STEP, EVAL_P1_STEP, EVAL_SCORE = 40, 30, "ldr_conf_1.0_ratio_50"  # phase 8's runs
+# the JSONs of phase 9b: cli.eval_gan_drs's counts (FID 50k/50k, IS 50k, PR
+# 10k/10k), KID at 10k/10k, and cli.eval_gan_with_index's FID of the 100
+# highest- and lowest-scored reals against 50k fakes
+EVAL_JSON = ("fid_50k_50k.json", "inception_score_50k.json", "pr_10k_10k.json",
+             "kid_10k_10k.json", f"fid_high_{EVAL_SCORE}_0k_50k.json",
+             f"fid_low_{EVAL_SCORE}_0k_50k.json")
+
+
+def inception_card_vs_cpu(dev, smi):
+    """9a: the FID InceptionV3 with random weights made from a seed on the
+    CPU and copied to the card, 4 uint8 32 px images resized to 299: pool3
+    and logits card against CPU within 1e-3 x max(1, max|out|), TF32 off."""
+    import copy
+
+    from diagan_tpu_torch.eval.inception import InceptionV3, inception_input, random_init_
+
+    cpu = random_init_(InceptionV3(device="cpu"), seed=SEED).eval()
+    card = copy.deepcopy(cpu).to(dev)
+    x = np.random.default_rng(SEED).integers(0, 256, (4, 32, 32, 3)).astype(np.uint8)
+    with torch.no_grad():
+        want = cpu(inception_input(x, "cpu"))
+        got = card(inception_input(x, dev))
+    torch.cuda.synchronize()
+    errs = []
+    for what, g, w in zip(("pool3", "logits"), got, want):
+        scale = max(1.0, w.abs().max().item())
+        err = max_err(g.cpu(), w)
+        check(err <= 1e-3 * scale, f"Inception {what} card vs CPU err {err} > 1e-3 x {scale}")
+        errs.append(f"{what} {err:.3e} (max|out| {w.abs().max().item():.3e})")
+    print(f"card vs CPU, FID InceptionV3 (random weights, seed {SEED}), 4 images 32 -> 299 px, "
+          f"fp32, TF32 off: max abs err {'; '.join(errs)}; tol 1e-3 x max(1, max|out|) [{smi}]")
+
+
+class PartTimer:
+    """Wall seconds of evaluate_checkpoint's parts, by wrapping the functions
+    that do them: the real features (InceptionFeaturizer.features), all
+    featurisation (features_and_logits, real included), fake generation (the
+    DRS and plain samplers) and the Frechet distance (scipy's sqrtm; its
+    calls are counted, two in one distance being the eps-jitter retry)."""
+
+    def __init__(self):
+        from scipy import linalg as scipy_linalg
+
+        from diagan_tpu_torch.eval import evaluate, inception, metrics
+        from diagan_tpu_torch.eval.drs import DRS
+
+        self.secs = {}
+        self.calls = {}
+        self._patches = [
+            self._wrap(inception.InceptionFeaturizer, "features", "real features"),
+            self._wrap(inception.InceptionFeaturizer, "features_and_logits", "featurisation"),
+            self._wrap(DRS, "generate_images", "fake generation"),
+            self._wrap(evaluate.Sampler, "generate_images", "fake generation"),
+            self._wrap(metrics, "frechet_distance", "sqrtm"),
+            self._wrap(scipy_linalg, "sqrtm", "scipy sqrtm"),
+        ]
+
+    def _wrap(self, owner, attr, label):
+        orig = getattr(owner, attr)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            self.secs[label] = self.secs.get(label, 0.0) + time.perf_counter() - t0
+            self.calls.setdefault(label, []).append(time.perf_counter() - t0)
+            return out
+        return mock.patch.object(owner, attr, timed)
+
+    def __enter__(self):
+        for p in self._patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self._patches:
+            p.stop()
+
+    def report(self, what, wall, smi):
+        s = dict(self.secs)
+        # features() runs through features_and_logits: the fakes' share is the rest
+        s["fake featurisation"] = s.pop("featurisation", 0.0) - s.get("real features", 0.0)
+        s.pop("scipy sqrtm", None)
+        parts = ", ".join(f"{k} {v:.2f} s" for k, v in s.items())
+        # two scipy sqrtm calls in one Frechet distance: the eps-jitter retry
+        print(f"{what}: {wall:.2f} s wall; {parts}; Frechet distances "
+              f"{[round(t, 2) for t in self.calls.get('sqrtm', [])]} s with "
+              f"{len(self.calls.get('scipy sqrtm', []))} scipy sqrtm calls [{smi}]")
+        return s
+
+
+def eval_path(dev, smi, work):
+    """9b and 9c. 9b: SNGAN-32 evaluation at full counts on phase 8's runs:
+    cli.eval_gan_drs on the phase-2 run (step 40; FID 50k/50k, IS 50k, PR
+    10k/10k, DRS at batch 256) and its 50k synthetic CIFAR-format set, KID at
+    10k/10k reusing PR's cached 10k DRS fakes, and cli.eval_gan_with_index
+    against the phase-1 logits (--p1_step 30); no port kernel may launch.
+    9c: evaluate_checkpoint("fid") of phase 6's StyleGAN2-256 phase-2
+    checkpoint with DRS against its 512 training images (512 real, 256 fake
+    samples of 2048-d features: a singular covariance, the eps-jitter sqrtm),
+    which launches kernel A and the fused bias-LeakyReLU. Returns 9c's
+    (launches, kernel A launches by instance)."""
+    from diagan_tpu_torch.cli import eval_gan_drs, eval_gan_with_index
+    from diagan_tpu_torch.data.predefined import get_predefined_dataset
+    from diagan_tpu_torch.eval.evaluate import evaluate_checkpoint
+    from diagan_tpu_torch.eval.inception import InceptionFeaturizer
+    from diagan_tpu_torch.models.registry import get_gan_model
+    from diagan_tpu_torch.ops import _build
+
+    sngan, data = work / "sngan", work / "sngan" / "cifar10"
+    common = ["-d", "cifar10", "-r", str(data), "--work_dir", str(sngan), "--exp_name", "p2",
+              "--netG_ckpt_step", str(EVAL_STEP), "--device", dev.type]
+
+    def run(what, fn):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with PartTimer() as timer:
+            out = fn()
+        wall = time.perf_counter() - t0
+        no_kernel_launched(what)
+        timer.report(what, wall, smi)
+        return out
+
+    run("cli.eval_gan_drs (FID 50k/50k, IS 50k, PR 10k/10k, DRS batch 256)",
+        lambda: eval_gan_drs.main(common))
+    real = get_predefined_dataset("cifar10", str(data)).images
+    run("evaluate_checkpoint kid 10k/10k (DRS, PR's cached fakes)", lambda: evaluate_checkpoint(
+        "kid", get_gan_model("cifar10", drs=True, device=dev), sngan / "p2", EVAL_STEP,
+        real_images=real, num_real_samples=10000, num_fake_samples=10000, use_drs=True,
+        featurizer=InceptionFeaturizer(batch_size=128, device=dev), device=dev))
+    run("cli.eval_gan_with_index (FID of 100 high / 100 low reals against 50k fakes)",
+        lambda: eval_gan_with_index.main(common + [
+            "--baseline_exp_name", "p1", "--p1_step", str(EVAL_P1_STEP),
+            "--resample_score", EVAL_SCORE]))
+    out = sngan / "p2" / "evaluate" / f"step-{EVAL_STEP}"
+    found = sorted(p.name for p in out.glob("*.json"))
+    check(found == sorted(EVAL_JSON), f"evaluation JSONs {found}")
+    for name in EVAL_JSON:
+        res = json.loads((out / name).read_text())
+        scores = [v for s in res["scores"].values()
+                  for v in (s.values() if isinstance(s, dict) else [s])]
+        check(list(res["scores"]) == ["0"] and all(math.isfinite(v) for v in scores),
+              f"{name} scores {res['scores']}")
+        print(f"{name}: scores {res['scores']}, inception_weights {res['inception_weights']}, "
+              f"use_drs {res['use_drs']}")
+    print("SNGAN-32 evaluation: every score finite; no port kernel launched")
+
+    # 9c. StyleGAN2-256 with DRS, through the port kernels
+    train = work / "train"
+    real = np.load(train / "data" / f"ffhq_{SIZE}.npy")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with PartTimer() as timer:
+        res = evaluate_checkpoint(
+            "fid", get_gan_model("ffhq", drs=True, device=dev), train / "p2", 12,
+            real_images=real, num_real_samples=512, num_fake_samples=256, use_drs=True,
+            batch_size=32, featurizer=InceptionFeaturizer(batch_size=128, device=dev), device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    fir = fir_launches("evaluate_checkpoint (StyleGAN2-256, DRS)")
+    check(all(launches[k] > 0 for k in FORWARD_KERNELS) and fir["fir4x4"] > 0
+          and fir["fir4x4_up2"] > 0, f"StyleGAN2 evaluation launches {launches}, {fir}")
+    check(math.isfinite(res["scores"]["0"]), f"StyleGAN2 FID {res['scores']}")
+    timer.report("evaluate_checkpoint fid (StyleGAN2-256 phase-2 step 12, DRS batch 32, 512 "
+                 "real / 256 fake)", wall, smi)
+    print(f"StyleGAN2-256 FID (random Inception weights, {res['inception_weights']}): "
+          f"{res['scores']['0']:.4f}; launches {launches}")
+    return launches, fir
+
+
+def time_inception(dev, smi):
+    """9d: one Inception batch of 128 at 299 (32 px uint8 in, the resize
+    included): ms and images/s by CUDA events, a profile, and the host's
+    time to queue one batch; then the featurizer's own loop over 2560
+    images from the host (host clock)."""
+    from diagan_tpu_torch.eval.inception import InceptionFeaturizer
+
+    feat = InceptionFeaturizer(batch_size=128, device=dev)
+    x = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (128, 32, 32, 3)).astype(np.uint8)).to(dev)
+    ms = cuda_ms(lambda: feat._forward(x), iters=5, warmup=2)
+    print(f"Inception batch 128 at 299 px fp32 (TF32 off), 32 px uint8 in: {ms:.2f} ms = "
+          f"{128e3 / ms:.2f} images/s [{smi}]")
+    profile(lambda: feat._forward(x), "one Inception batch (128 images, 299 px)", smi, ())
+    enqueue = []
+    for _ in range(5):  # the host's time to queue one batch, the card not waited for
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feat._forward(x)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    print(f"Inception batch 128: the host queues it in {min(enqueue):.2f} ms (best of 5; "
+          f"median {sorted(enqueue)[2]:.2f} ms), against {ms:.2f} ms per batch [{smi}]")
+    host = x.cpu().numpy().repeat(20, axis=0)
+    feat.features_and_logits(host[:256])
+    t0 = time.perf_counter()
+    feat.features_and_logits(host)
+    dt = time.perf_counter() - t0
+    print(f"features_and_logits of {len(host)} uint8 32 px images from the host (batches of "
+          f"128, the copies in): {dt:.2f} s = {len(host) / dt:.2f} images/s [{smi}]")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -2086,6 +2299,24 @@ def main(argv=None):
     sngan_path(dev, smi, work / "sngan")
     phase("8b. one SNGAN step, card against CPU")
     sngan_step_card_vs_cpu(dev, smi)
+
+    # 9. evaluation: FID/IS/KID/PR through the eval entry points
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    phase("9a. Inception, card against CPU")
+    inception_card_vs_cpu(dev, smi)
+    phase("9b/9c. evaluation: SNGAN-32 at full counts, StyleGAN2-256 with DRS")
+    eval_launches, eval_fir = eval_path(dev, smi, work)
+    for k in kernels:
+        if k["name"] in eval_launches:
+            k["launches"] += eval_launches[k["name"]]
+        elif k["name"].startswith("upfirdn2d/"):
+            k["launches"] += eval_fir[k["name"].split("/", 1)[1]]
+    phase("9d. evaluation timings")
+    time_inception(dev, smi)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"peak device memory of phase 9 {(peak - held) / 2**30:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB that earlier phases still held [{smi}]")
 
     shutil.rmtree(work, ignore_errors=True)
     phase("done")

@@ -1,5 +1,5 @@
-"""Weight bridge: the JAX package's Flax StyleGAN2 and SNGAN variables -> the
-port's state_dicts.
+"""Weight bridge: the JAX package's Flax StyleGAN2, SNGAN and InceptionV3
+variables -> the port's state_dicts.
 
 Input is a Flax variable tree as nested dicts of numpy arrays (what
 `jax.device_get(variables["params"])` gives); this module never imports jax.
@@ -21,7 +21,11 @@ Layout conversions:
     BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
     (num_batches_tracked 0); a spectral layer's `u` (1, out) -> `weight_u`
     (out,), and its stored sigma is dropped: every forward recomputes it from
-    (W, u) (models/layers.py).
+    (W, u) (models/layers.py);
+  - InceptionV3 (eval/inception.py): the Flax auto-named ConvBN_k modules,
+    sorted naturally (ConvBN_10 after ConvBN_2, as the JAX loader sorts
+    them), go in order to the port's ConvBN modules, which carry
+    torchvision's names in torchvision's order.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ import re
 
 import numpy as np
 import torch
+
+from diagan_tpu_torch.eval.inception import InceptionV3, conv_bn_names
 
 
 def _flatten(tree, prefix=()):
@@ -238,3 +244,54 @@ def sngan_discriminator_state_dict(variables):
     n_blocks = 1 + sum(1 for k in params if k.startswith("DBlock_"))
     tree = {"params": params, "spectral": variables["spectral"]}
     return _convert(tree, _sngan_discriminator_rule(f"l{n_blocks + 1}"), "SNGAN discriminator")
+
+
+def _natural_key(path):
+    """Sort key where 'ConvBN_10' sorts after 'ConvBN_2' (the JAX package's
+    inception.py:_natural_key)."""
+    key = []
+    for comp in path:
+        stem, _, num = comp.rpartition("_")
+        key.append((stem, int(num)) if stem and num.isdigit() else (comp, -1))
+    return key
+
+
+def inception_state_dict(variables, module=None):
+    """Flax InceptionV3 variables {"params", "batch_stats"} -> the port
+    InceptionV3's state_dict: conv HWIO -> OIHW, BatchNorm scale / bias /
+    mean / var -> weight / bias / running_mean / running_var
+    (num_batches_tracked 0), Dense kernel transposed into fc. `module` is the
+    port module the tree belongs to (default the whole InceptionV3; one
+    Inception block takes its block's variables)."""
+    names = conv_bn_names(module if module is not None else InceptionV3(device="meta"))
+    tree = {"params": variables["params"], "batch_stats": variables["batch_stats"]}
+    leaves = dict(_flatten(tree))
+    # a ConvBN is a Flax module holding Conv_0 and BatchNorm_0: its path
+    # below the collection, in natural order
+    convbns = sorted({path[1:-2] for path in leaves
+                      if path[0] == "params" and path[-2:-1] == ("Conv_0",)},
+                     key=_natural_key)
+    if len(convbns) != len(names):
+        raise ValueError(f"Inception bridge: {len(convbns)} Flax ConvBN modules for "
+                         f"{len(names)} port ones")
+    rules = {}
+    for name, mod in zip(names, convbns):
+        rules[("params", *mod, "Conv_0", "kernel")] = (f"{name}.conv.weight", _conv)
+        for coll, leaf, part in (("params", "scale", "weight"), ("params", "bias", "bias"),
+                                 ("batch_stats", "mean", "running_mean"),
+                                 ("batch_stats", "var", "running_var")):
+            rules[(coll, *mod, "BatchNorm_0", leaf)] = (f"{name}.bn.{part}", None)
+    rules[("params", "Dense_0", "kernel")] = ("fc.weight", np.transpose)
+    rules[("params", "Dense_0", "bias")] = ("fc.bias", None)
+
+    def rule(path, arr):
+        hit = rules.get(path)
+        if hit is None:
+            return None
+        key, fn = hit
+        return key, arr if fn is None else fn(arr)
+
+    sd = _convert(tree, rule, "Inception")
+    for name in names:
+        sd[f"{name}.bn.num_batches_tracked"] = torch.tensor(0)
+    return sd

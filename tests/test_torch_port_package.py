@@ -17,6 +17,10 @@ torch = pytest.importorskip("torch")
 
 from diagan_tpu_torch import resolve_device  # noqa: E402
 from diagan_tpu_torch.cli import (  # noqa: E402
+    eval_gan,
+    eval_gan_drs,
+    eval_gan_drs_with_index,
+    eval_gan_with_index,
     generate,
     train_ffhq,
     train_ffhq_phase2,
@@ -26,7 +30,8 @@ from diagan_tpu_torch.cli import (  # noqa: E402
 from diagan_tpu_torch.data.arrays import ArrayDataset  # noqa: E402
 from diagan_tpu_torch.data.pipeline import DeviceDataSource  # noqa: E402
 from diagan_tpu_torch.eval.drs import DRS  # noqa: E402
-from diagan_tpu_torch.eval.evaluate import Sampler  # noqa: E402
+from diagan_tpu_torch.eval.evaluate import Sampler, evaluate_checkpoint  # noqa: E402
+from diagan_tpu_torch.eval.inception import InceptionFeaturizer  # noqa: E402
 from diagan_tpu_torch.models.registry import get_gan_model  # noqa: E402
 from diagan_tpu_torch.models.sngan import SNGANDiscriminator32, SNGANGenerator32  # noqa: E402
 from diagan_tpu_torch.models.stylegan2 import (  # noqa: E402
@@ -90,7 +95,9 @@ def test_port_imports_with_jax_unavailable():
     names = out.stdout.split()
     assert len(names) >= 30 and "diagan_tpu_torch.ops.ada_phase" in names
     assert {"diagan_tpu_torch.cli.train_mimicry_phase1", "diagan_tpu_torch.train.trainer",
-            "diagan_tpu_torch.data.pipeline", "diagan_tpu_torch.utils.plot"} <= set(names)
+            "diagan_tpu_torch.data.pipeline", "diagan_tpu_torch.utils.plot",
+            "diagan_tpu_torch.eval.inception", "diagan_tpu_torch.eval.metrics",
+            "diagan_tpu_torch.cli.eval_gan_drs"} <= set(names)
 
 
 def _no_card(monkeypatch):
@@ -115,10 +122,19 @@ def _no_card(monkeypatch):
     lambda: get_gan_model("cifar10"),
     lambda: SNGANGenerator32(ngf=8),
     lambda: SNGANDiscriminator32(ndf=8),
+    lambda: get_gan_model("ffhq"),
+    lambda: InceptionFeaturizer(),
+    lambda: evaluate_checkpoint("fid", None, "unused", 1),
+    lambda: eval_gan.main(["--netG_ckpt_step", "1", "--work_dir", "unused"]),
+    lambda: eval_gan_drs.main(["--netG_ckpt_step", "1", "--work_dir", "unused"]),
+    lambda: eval_gan_with_index.main(["--netG_ckpt_step", "1", "--work_dir", "unused"]),
+    lambda: eval_gan_drs_with_index.main(["--netG_ckpt_step", "1", "--work_dir", "unused"]),
 ], ids=["resolve_device", "generator", "discriminator", "drs", "sampler", "generate_cli",
         "train_ffhq_cli", "train_ffhq_phase2_cli", "trainer", "mimicry_phase1_cli",
         "mimicry_phase2_cli", "log_trainer", "device_data_source", "get_gan_model",
-        "sngan_generator", "sngan_discriminator"])
+        "sngan_generator", "sngan_discriminator", "ffhq_bundle", "inception_featurizer",
+        "evaluate_checkpoint", "eval_gan_cli", "eval_gan_drs_cli", "eval_gan_with_index_cli",
+        "eval_gan_drs_with_index_cli"])
 def test_entry_points_without_device_raise_when_no_card(monkeypatch, entry):
     _no_card(monkeypatch)
     with pytest.raises(RuntimeError, match="device='cpu'"):
