@@ -84,7 +84,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      sqrtm; 9c FID with DRS of the StyleGAN2-256 phase-2 checkpoint (the
      eps-jitter sqrtm), whose kernel A and fused-act launches join the
      kernels line; 9d one profiled Inception batch of 128 at 299 and phase
-     9's peak device memory.
+     9's peak device memory;
+ 10. the CelebA-64 Dia-GAN path and its attribute study at full width
+     (SNGAN-64 ngf 1024, ndf 1024, batch 64, n_dis 5; AttrClassifier at 64
+     px) on 202,599 procedural images in CelebA's layout (celeba_64.npy and
+     list_attr_celeba.txt): cli.train_mimicry_phase1 -d celeba for 12 steps
+     with two sweeps of the whole set, cli.train_mimicry_phase2 to step 16
+     (ldr_conf_1.0_ratio_50, twin DRS D), cli.disc_score_celeba_with_attr,
+     cli.train_convnet_celeba for 1 epoch on the first 20,000 images,
+     cli.count_attr_celeba --drs and cli.eval_gan_drs_celeba_with_attr
+     --metric all at 2048 samples; no port kernel may launch; steps/s,
+     sweep seconds, DRS accepted/s, classifier images/s, wall s per CLI and
+     peak memory; 10b one fused SNGAN-64 step and the AttrClassifier's
+     forward and gradients, card against CPU.
 Each phase prints its start, in seconds since the script started.
 The last lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a card it exits 2 and prints no result.
@@ -859,19 +871,13 @@ def train_path(dev, smi, work):
         print(f"{name}: {time.perf_counter() - t0:.2f} s, launches {launches[name]}")
         return out
 
-    def finite(tr, keys):
-        m = {k: float(v) for k, v in tr.metrics.items()}
-        check(all(math.isfinite(v) for v in m.values()), f"non-finite metrics {m}")
-        check(set(keys) <= set(m), f"metrics {sorted(m)}")
-        return "; ".join(f"{k} {v:.4f}" for k, v in m.items())
-
     interleaved = tuple(k for k in _build.LAUNCHES if k not in WARP2)
     torch.cuda.reset_peak_memory_stats()
     tr1 = drive("train_ffhq (8 steps)", lambda: train_ffhq.main(
         common + ["--exp_name", "p1", "--iter", "8", "--logit_save_steps", "2",
                   "--save_logit_after", "0"]), interleaved, WARP2)
     peak = torch.cuda.max_memory_allocated()
-    print(f"phase 1 metrics: {finite(tr1, ('d', 'g', 'r1', 'path'))}; peak device memory "
+    print(f"phase 1 metrics: {finite_metrics(tr1, ('d', 'g', 'r1', 'path'))}; peak device memory "
           f"{peak / 2**30:.2f} GiB [{smi}]")
     ckpt1, pkl = work / "p1" / "checkpoint" / "000008.pt", work / "p1" / "logits_netD.pkl"
     check(ckpt1.is_file() and pkl.is_file(), "phase 1 wrote no checkpoint or logits")
@@ -888,7 +894,7 @@ def train_path(dev, smi, work):
     ckpt2 = work / "p2" / "checkpoint" / "000012.pt"
     check(ckpt2.is_file() and tr2.weights is not None and tr2.drs_disc is not None,
           "phase 2 checkpoint, weights or drs_d missing")
-    print(f"phase 2 metrics (steps 8-11: no R1 step): {finite(tr2, ('d', 'g', 'path'))}")
+    print(f"phase 2 metrics (steps 8-11: no R1 step): {finite_metrics(tr2, ('d', 'g', 'path'))}")
 
     imgs = drive("cli.generate (phase-2 checkpoint)", lambda: generate.main(
         ["--size", str(SIZE), "--sample", "4", "--pics", "1", "--ckpt", str(ckpt2),
@@ -914,7 +920,7 @@ def train_path(dev, smi, work):
             tuple(k for k in _build.LAUNCHES if k not in WARP), WARP)
     check((work / "p1_poly" / "checkpoint" / "000004.pt").is_file(),
           "the polyphase run wrote no checkpoint")
-    print(f"polyphase phase 1 metrics: {finite(trp, ('d', 'g', 'r1', 'path'))}")
+    print(f"polyphase phase 1 metrics: {finite_metrics(trp, ('d', 'g', 'r1', 'path'))}")
     return tr1, launches, fir
 
 
@@ -1607,6 +1613,29 @@ def no_kernel_launched(path):
     check(not launched, f"{path} launched port kernels {launched}")
 
 
+def steps_per_s(tr, start, dev, n=10):
+    """Fused steps per second of a LogTrainer from global step `start` on: one
+    step to warm up, then n synchronised steps (host clock)."""
+    from diagan_tpu_torch.train.steps import step_draws
+
+    fused = tr.fused_step
+    fused(start, step_draws(SEED, start, dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(start + 1, start + 1 + n):
+        fused(s, step_draws(SEED, s, dev))
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def finite_metrics(tr, keys):
+    """The trainer's last metrics, checked finite and holding `keys`, as text."""
+    m = {k: float(v) for k, v in tr.metrics.items()}
+    check(all(math.isfinite(v) for v in m.values()), f"non-finite metrics {m}")
+    check(set(keys) <= set(m), f"metrics {sorted(m)}")
+    return "; ".join(f"{k} {v:.4f}" for k, v in m.items())
+
+
 def sngan_path(dev, smi, work):
     """The SNGAN-32 Dia-GAN path at full width (ngf 256, ndf 128), batch 64,
     n_dis 5, hinge, fp32, through its CLIs on 50,000 synthetic CIFAR-format
@@ -1633,22 +1662,6 @@ def sngan_path(dev, smi, work):
     common = ["-r", str(data), "--work_dir", str(work), "--device", dev.type,
               "--batch_size", str(SNGAN_BS), "--n_dis", str(SNGAN_NDIS), "--seed", str(SEED)]
 
-    def finite(tr, keys):
-        m = {k: float(v) for k, v in tr.metrics.items()}
-        check(all(math.isfinite(v) for v in m.values()), f"non-finite metrics {m}")
-        check(set(keys) <= set(m), f"metrics {sorted(m)}")
-        return "; ".join(f"{k} {v:.4f}" for k, v in m.items())
-
-    def steps_per_s(tr, start, n=10):
-        fused = tr.fused_step
-        fused(start, step_draws(SEED, start, dev))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for s in range(start + 1, start + 1 + n):
-            fused(s, step_draws(SEED, s, dev))
-        torch.cuda.synchronize()
-        return n / (time.perf_counter() - t0)
-
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # what earlier phases still hold
     _build.reset_launches()
@@ -1660,7 +1673,7 @@ def sngan_path(dev, smi, work):
     t_p1 = time.perf_counter() - t0
     no_kernel_launched("train_mimicry_phase1")
     print(f"train_mimicry_phase1 (30 steps, 3 sweeps of {SNGAN_N}): {t_p1:.2f} s, metrics "
-          f"{finite(tr1, ('errD', 'errG', 'D(x)', 'D(G(z))'))}; no port kernel launched")
+          f"{finite_metrics(tr1, ('errD', 'errG', 'D(x)', 'D(G(z))'))}; no port kernel launched")
     with open(work / "p1" / "logits_netD_eval.pkl", "rb") as f:
         logits = pickle.load(f)
     check(list(logits) == [10, 20, 30] and all(type(k) is int for k in logits),
@@ -1685,7 +1698,7 @@ def sngan_path(dev, smi, work):
         check((work / "p2" / "checkpoints" / net / f"{net}_40_steps.pth").is_file(),
               f"phase 2 wrote no {net} checkpoint")
     print(f"train_mimicry_phase2 (10 steps, ldr_conf_1.0_ratio_50, twin DRS D): {t_p2:.2f} s, "
-          f"metrics {finite(tr2, ('errD', 'errG', 'errD_drs'))}; no port kernel launched")
+          f"metrics {finite_metrics(tr2, ('errD', 'errG', 'errD_drs'))}; no port kernel launched")
     peak = torch.cuda.max_memory_allocated()
 
     _build.reset_launches()
@@ -1707,7 +1720,7 @@ def sngan_path(dev, smi, work):
           f"{drs.proposed} proposed (acceptance {acc:.4f}) in {t_drs:.2f} s = "
           f"{4096 / t_drs:.2f} accepted/s; no port kernel launched [{smi}]")
 
-    p1_sps, p2_sps = steps_per_s(tr1, 30), steps_per_s(tr2, 40)
+    p1_sps, p2_sps = steps_per_s(tr1, 30, dev), steps_per_s(tr2, 40, dev)
     sweep = [0.0, 0.0]
     for i in range(2):
         torch.cuda.synchronize()
@@ -1725,26 +1738,34 @@ def sngan_path(dev, smi, work):
     del tr1, tr2, drs, gen, disc
 
 
-def sngan_step_card_vs_cpu(dev, smi):
-    """One fused SNGAN step with the twin D (phase 2), card against CPU, from
-    the same weights and the same injected draws, at width 64, batch 16,
-    n_dis 2: every Adam update's gradients and the metrics within
-    1e-3 x max(1, max|.|)."""
+def sngan_step_card_vs_cpu(dev, smi, size=32):
+    """One fused SNGAN-{size} step with the twin D (phase 2), card against
+    CPU, from the same weights and the same injected draws, at width 64 (32
+    px) or 128 (64 px), batch 16, n_dis 2: every Adam update's gradients and
+    the metrics within 1e-3 x max(1, max|.|). At 64 px with lr 0: an Adam
+    step moves a weight by ~lr whatever its gradient's size, so a gradient
+    that is zero up to round-off moves it differently on each device, and
+    the D update before the metrics' D step shifted D(x) and D(G(z)) by 2e-3
+    (NVIDIA H100 80GB HBM3, 700 W); with lr 0 every update's gradients and
+    every metric come from the same weights on both devices."""
     import copy
 
     from diagan_tpu_torch.data.arrays import ArrayDataset
     from diagan_tpu_torch.data.pipeline import DeviceDataSource
     from diagan_tpu_torch.data.synthetic import synthetic_natural
     from diagan_tpu_torch.models.registry import OptSpec
-    from diagan_tpu_torch.models.sngan import SNGANDiscriminator32, SNGANGenerator32
+    from diagan_tpu_torch.models import sngan
     from diagan_tpu_torch.train.state import NetState
     from diagan_tpu_torch.train.steps import StepConfig, make_fused_step
 
-    bs, n_dis, width, n = 16, 2, 64, 64
+    bs, n_dis, width, n = 16, 2, 64 if size == 32 else 128, 64
+    lr = 2e-4 if size == 32 else 0.0
+    gen, disc = ((sngan.SNGANGenerator32, sngan.SNGANDiscriminator32) if size == 32
+                 else (sngan.SNGANGenerator64, sngan.SNGANDiscriminator64))
     torch.manual_seed(SEED)
-    nets0 = [SNGANGenerator32(ngf=width, device="cpu"), SNGANDiscriminator32(ndf=width, device="cpu"),
-             SNGANDiscriminator32(ndf=width, device="cpu")]
-    ds = ArrayDataset.from_images(synthetic_natural(n, 32, seed=13)[0])
+    nets0 = [gen(ngf=width, device="cpu"), disc(ndf=width, device="cpu"),
+             disc(ndf=width, device="cpu")]
+    ds = ArrayDataset.from_images(synthetic_natural(n, size, seed=13)[0])
     rng = np.random.default_rng(SEED)
     draws = {k: [torch.from_numpy(rng.integers(0, n, bs)) for _ in range(n_dis)]
              for k in ("real", "drs")}
@@ -1766,7 +1787,7 @@ def sngan_step_card_vs_cpu(dev, smi):
                      use_drs=True)
     out = []
     for d in (torch.device("cpu"), dev):
-        spec, grads = OptSpec(2e-4, (0.0, 0.9)), {}
+        spec, grads = OptSpec(lr, (0.0, 0.9)), {}
         nets = [NetState(copy.deepcopy(m).to(d), spec, 100, "linear", ups)
                 for m, ups in zip(nets0, (1, n_dis, n_dis))]
         for name, net in zip(("G", "D", "D_drs"), nets):
@@ -1789,7 +1810,8 @@ def sngan_step_card_vs_cpu(dev, smi):
                 err = max_err(got, want)
                 check(err <= 1e-3 * scale, f"{name} grad err {err} > 1e-3 x {scale}")
                 worst[name] = max(worst.get(name, 0.0), err / scale)
-    print(f"card vs CPU, one SNGAN-32 phase-2 step (width {width}, batch {bs}, n_dis {n_dis}, "
+    print(f"card vs CPU, one SNGAN-{size} phase-2 step (width {width}, batch {bs}, n_dis {n_dis}, "
+          f"lr {lr}, "
           f"injected draws, fp32, TF32 off): losses rel err {m_err:.3e}; gradients max abs err "
           f"/ max(1, max|g|) by net {({k: f'{v:.3e}' for k, v in worst.items()})} (tol 1e-3) "
           f"[{smi}]")
@@ -1996,6 +2018,269 @@ def time_inception(dev, smi):
     dt = time.perf_counter() - t0
     print(f"features_and_logits of {len(host)} uint8 32 px images from the host (batches of "
           f"128, the copies in): {dt:.2f} s = {len(host) / dt:.2f} images/s [{smi}]")
+
+
+CELEBA_N = 202599  # CelebA's image count
+CELEBA_CLF_N = 20000  # the attribute classifier's images (a depth cut)
+CELEBA_ATTR, CELEBA_SCORE = "Bald", "ldr_conf_1.0_ratio_50"
+# phase 1: 12 steps, sweeps at 5 and 10 (phase 2 scores the window before
+# --p1_step 12); phase 2 to step 16; evaluation counts
+CELEBA_P1, CELEBA_P2, CELEBA_SAMPLES = 12, 16, 2048
+
+
+def write_celeba(root, n, n_base=2048, seed=21):
+    """A procedural CelebA in its on-disk layout: celeba_64.npy of n images
+    (n_base 1/f-noise images, each successive tile of them rolled sideways
+    by one more pixel), written in chunks through open_memmap, and
+    list_attr_celeba.txt (a count line, the 40 names, then a file name and
+    40 values per image) with synthetic_celeba_attrs' attributes of the base
+    images."""
+    from diagan_tpu_torch.data.sources import CELEBA_ATTR_NAMES, synthetic_celeba_attrs
+    from diagan_tpu_torch.data.synthetic import synthetic_natural
+
+    root.mkdir(parents=True)
+    base = synthetic_natural(n_base, 64, seed=seed)[0]
+    rows = [" ".join(f"{int(a):2d}" for a in r) for r in synthetic_celeba_attrs(base, seed=seed)]
+    out = np.lib.format.open_memmap(root / "celeba_64.npy", mode="w+", dtype=np.uint8,
+                                    shape=(n, 64, 64, 3))
+    for t, lo in enumerate(range(0, n, n_base)):
+        hi = min(lo + n_base, n)
+        out[lo:hi] = np.roll(base[: hi - lo], t, axis=2)
+    out.flush()
+    del out
+    lines = [str(n), " ".join(CELEBA_ATTR_NAMES)]
+    lines += [f"{i + 1:06d}.jpg {rows[i % n_base]}" for i in range(n)]
+    (root / "list_attr_celeba.txt").write_text("\n".join(lines) + "\n")
+    return root
+
+
+def celeba_subset(src, root, n):
+    """The first n images and attribute lines of a CelebA directory."""
+    root.mkdir(parents=True)
+    np.save(root / "celeba_64.npy", np.load(src / "celeba_64.npy", mmap_mode="r")[:n])
+    lines = (src / "list_attr_celeba.txt").read_text().splitlines()
+    (root / "list_attr_celeba.txt").write_text("\n".join([str(n)] + lines[1:n + 2]) + "\n")
+    return root
+
+
+def attr_classifier_card_vs_cpu(dev, smi):
+    """AttrClassifier (num_attrs 2, 64 px, full width) with weights from a
+    seed, batch 16: the eval forward's logits and features card against CPU
+    in fp32 (TF32 off) within 1e-3 x max(1, max|.|); one train step's loss
+    gradients (softmax CE, one fixed dropout mask) card against CPU in
+    float64 within 1e-6 x max(1, max|g|), and each device's fp32 gradients
+    against the float64 CPU ones within 1e-2 x max(1, max|g|), printed with
+    the tensor furthest off. 1e-3 does not hold in fp32: through the
+    train-mode BatchNorms the card's fp32 gradients came 2.27e-3 off at
+    conv5.weight with cuDNN and 2.4e-4 (as the CPU's) with cuDNN off,
+    whatever the TF32 and determinism settings (NVIDIA H100 80GB HBM3,
+    700 W)."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from diagan_tpu_torch.models.convnets import AttrClassifier
+
+    torch.manual_seed(SEED)
+    net = AttrClassifier(num_attrs=2, device="cpu")
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.integers(0, 256, (16, 64, 64, 3)).astype(np.uint8)).float() / 127.5 - 1
+    y = torch.from_numpy(rng.integers(0, 2, 16))
+    mask = torch.from_numpy(rng.random((16, 512)) < 0.5)
+
+    def forward(d):
+        with torch.no_grad():
+            return [t.cpu() for t in copy.deepcopy(net).to(d).eval()(x.to(d))]
+
+    def gradients(d, dtype):
+        m = copy.deepcopy(net).to(d, dtype).train()
+        loss = F.cross_entropy(m(x.to(d, dtype), mask.to(d))[0], y.to(d))
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        return {n: g.cpu().double() for (n, _), g in zip(m.named_parameters(), grads)}
+
+    def worst(got, want):
+        errs = {k: max_err(got[k], want[k]) / max(1.0, want[k].abs().max().item()) for k in want}
+        k = max(errs, key=errs.get)
+        return errs[k], k
+
+    fwd_err = max(max_err(g, w) / max(1.0, w.abs().max().item())
+                  for w, g in zip(forward(torch.device("cpu")), forward(dev)))
+    check(fwd_err <= 1e-3, f"AttrClassifier forward err {fwd_err} > 1e-3 x max(1, max|out|)")
+    ref = gradients(torch.device("cpu"), torch.float64)
+    err64, at64 = worst(gradients(dev, torch.float64), ref)
+    check(err64 <= 1e-6, f"AttrClassifier float64 gradients err {err64} at {at64} > 1e-6")
+    (err_card, at_card), (err_cpu, at_cpu) = (worst(gradients(d, torch.float32), ref)
+                                              for d in (dev, torch.device("cpu")))
+    check(max(err_card, err_cpu) <= 1e-2, f"AttrClassifier fp32 gradients err: card {err_card} "
+          f"at {at_card}, CPU {err_cpu} at {at_cpu}; tol 1e-2")
+    print(f"card vs CPU, AttrClassifier at 64 px, batch 16: eval forward fp32 (TF32 off) max abs "
+          f"err / max(1, max|out|) {fwd_err:.3e} (tol 1e-3); one train step's gradients in "
+          f"float64 {err64:.3e} at {at64} (tol 1e-6); in fp32 against the float64 CPU ones: "
+          f"card {err_card:.3e} at {at_card}, CPU {err_cpu:.3e} at {at_cpu} (tol 1e-2) [{smi}]")
+
+
+def celeba_path(dev, smi, work):
+    """10. The CelebA-64 Dia-GAN path and its attribute study at full width
+    (SNGAN-64 ngf 1024, ndf 1024, nz 128, batch 64, n_dis 5, hinge;
+    AttrClassifier at 64 px) through the CLIs, on 202,599 procedural images
+    in CelebA's layout: phase 1 for 12 steps with sweeps of the whole set at
+    5 and 10, phase 2 to step 16 (ldr_conf_1.0_ratio_50, the twin DRS D),
+    the disc-score means of Bald, the attribute classifier for 1 epoch on
+    the first 20,000 images, count_attr with DRS at batch 256 on 2048
+    samples, and the DRS evaluation's partial recall and attribute-sliced
+    FID at 2048 fakes and at most 2048 reals a subset. No port kernel may
+    launch. Steps/s, sweep seconds, DRS accepted/s and acceptance,
+    classifier images/s, each CLI's wall time and peak device memory."""
+    from diagan_tpu_torch.cli import (
+        count_attr_celeba,
+        disc_score_celeba_with_attr,
+        eval_gan_drs_celeba_with_attr,
+        train_convnet_celeba,
+        train_mimicry_phase1,
+        train_mimicry_phase2,
+    )
+    from diagan_tpu_torch.eval.drs import DRS
+    from diagan_tpu_torch.ops import _build
+    import pickle
+
+    from diagan_tpu_torch.train.logit_recorder import LogitRecorder
+
+    t0 = time.perf_counter()
+    data = write_celeba(work / "celeba", CELEBA_N)
+    sub = celeba_subset(data, work / "celeba_clf", CELEBA_CLF_N)
+    print(f"dataset: {CELEBA_N} procedural 64 px images in CelebA's layout (celeba_64.npy, "
+          f"{CELEBA_N * 64 * 64 * 3 / 1e9:.2f} GB, and list_attr_celeba.txt), and the first "
+          f"{CELEBA_CLF_N} apart for the classifier, in {time.perf_counter() - t0:.2f} s")
+    common = ["--work_dir", str(work), "--device", dev.type, "--seed", str(SEED)]
+    train = common + ["-d", "celeba", "-r", str(data), "--batch_size", "64", "--n_dis", "5"]
+    walls = {}
+
+    def drive(what, fn):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[what] = time.perf_counter() - t0
+        no_kernel_launched(what)
+        return out
+
+    def timed(owner, attr, log):
+        """Patch owner.attr to append (its positional arguments, synchronised
+        seconds) to log on every call."""
+        orig = getattr(owner, attr)
+
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            log.append((args, time.perf_counter() - t0))
+            return out
+        return mock.patch.object(owner, attr, call)
+
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    sweeps = []
+    with timed(LogitRecorder, "sweep", sweeps):
+        tr1 = drive("train_mimicry_phase1", lambda: train_mimicry_phase1.main(train + [
+            "--exp_name", "p1", "--no_schedule_override", "--num_steps", str(CELEBA_P1),
+            "--logit_save_steps", "5", "--save_logit_after", "5",
+            "--stop_save_logit_after", "10"]))
+    with open(work / "p1" / "logits_netD_eval.pkl", "rb") as f:
+        logits = pickle.load(f)
+    check(list(logits) == [5, 10] and all(v.dtype == np.float64 and v.shape == (CELEBA_N,)
+                                           and np.isfinite(v).all() for v in logits.values()),
+          f"phase 1 logits {list(logits)}")
+    print(f"train_mimicry_phase1 -d celeba ({CELEBA_P1} steps, 2 sweeps of {CELEBA_N}): "
+          f"{walls['train_mimicry_phase1']:.2f} s, metrics "
+          f"{finite_metrics(tr1, ('errD', 'errG', 'D(x)', 'D(G(z))'))}; sweeps "
+          f"{[round(t, 2) for _, t in sweeps]} s; no port kernel launched [{smi}]")
+
+    tr2 = drive("train_mimicry_phase2", lambda: train_mimicry_phase2.main(train + [
+        "--exp_name", "p2", "--baseline_exp_name", "p1", "--p1_step", str(CELEBA_P1),
+        "--num_steps", str(CELEBA_P2), "--resample_score", CELEBA_SCORE]))
+    check(tr2.global_step == CELEBA_P2 and tr2.d_drs.count == tr2.d.count == CELEBA_P2 * 5,
+          f"phase 2 ended at step {tr2.global_step}, D updates {tr2.d.count}")
+    for net in ("netG", "netD", "netD_drs"):
+        check((work / "p2" / "checkpoints" / net / f"{net}_{CELEBA_P2}_steps.pth").is_file(),
+              f"phase 2 wrote no {net} checkpoint")
+    print(f"train_mimicry_phase2 -d celeba ({CELEBA_P2 - CELEBA_P1} steps, {CELEBA_SCORE}, twin "
+          f"DRS D): {walls['train_mimicry_phase2']:.2f} s, metrics "
+          f"{finite_metrics(tr2, ('errD', 'errG', 'errD_drs'))}; no port kernel launched")
+    p1_sps, p2_sps = steps_per_s(tr1, CELEBA_P2 + 1, dev, 5), steps_per_s(tr2, CELEBA_P2 + 1, dev, 5)
+    print(f"SNGAN-64 batch 64 n_dis 5 fp32: phase 1 {p1_sps:.3f} steps/s, phase 2 (with the twin "
+          f"D) {p2_sps:.3f} steps/s (host clock, 5 synchronised steps); one logit sweep of "
+          f"{CELEBA_N} at batch 256: {sweeps[0][1]:.2f} / {sweeps[1][1]:.2f} s [{smi}]")
+    del tr1, tr2
+
+    means = drive("disc_score_celeba_with_attr", lambda: disc_score_celeba_with_attr.main([
+        "-r", str(data), "--work_dir", str(work), "--exp_name", "p1",
+        "--p1_step", str(CELEBA_P1), "--resample_score", CELEBA_SCORE, "--attr", CELEBA_ATTR]))
+    check(all(math.isfinite(v) and v > 0 for v in means.values()), f"disc-score means {means}")
+    print(f"disc_score_celeba_with_attr ({CELEBA_ATTR}): {walls['disc_score_celeba_with_attr']:.2f}"
+          f" s; mean weight with {means['attr']:.6f}, without {means['not_attr']:.6f}")
+
+    fits, preds = [], []
+    with timed(train_convnet_celeba, "train_classifier", fits), \
+            timed(train_convnet_celeba, "predict_classifier", preds):
+        _, hist, val_acc, test_acc = drive("train_convnet_celeba", lambda: train_convnet_celeba.main(
+            common + ["-r", str(sub), "--num_epochs", "1", "--attr", CELEBA_ATTR]))
+    clf = work / "attr_classifier"
+    check((clf / f"{CELEBA_ATTR}.pth").is_file(), "no classifier file")
+    csv_lines = (clf / f"{CELEBA_ATTR}_results.csv").read_text().splitlines()
+    check(csv_lines[0] == "attr,train_acc,val_acc,test_acc" and len(csv_lines) == 2
+          and all(math.isfinite(float(v)) for v in csv_lines[1].split(",")[1:]),
+          f"classifier CSV {csv_lines}")
+    n_fit = len(fits[0][0][1]) // 128 * 128
+    n_pred = sum(len(args[1]) for args, _ in preds)
+    print(f"train_convnet_celeba (AttrClassifier, 1 epoch, {n_fit} images at batch 128): "
+          f"{walls['train_convnet_celeba']:.2f} s; train {n_fit / fits[0][1]:.2f} images/s, "
+          f"predict {n_pred / sum(t for _, t in preds):.2f} images/s ({n_pred} images at "
+          f"batch 256); train acc {hist[-1]['acc']:.4f}, val {val_acc:.4f}, test {test_acc:.4f} "
+          f"[{smi}]")
+
+    draws = []
+    with timed(DRS, "generate_images", draws):
+        counted = drive("count_attr_celeba", lambda: count_attr_celeba.main(common + [
+            "--exp_name", "p2", "--netG_ckpt_step", str(CELEBA_P2), "--attr", CELEBA_ATTR,
+            "--drs", "--num_samples", str(CELEBA_SAMPLES)]))
+    saved = json.loads((work / "p2" / f"count_attr_{CELEBA_ATTR}_drs.json").read_text())
+    check(saved == counted and saved["total"] == CELEBA_SAMPLES and 0 <= saved["fraction"] <= 1,
+          f"count JSON {saved}")
+    (drs, *_), t_drs = draws[0]
+    acc = drs.accepted / drs.proposed
+    check(0.0 < acc < 1.0, f"SNGAN-64 DRS acceptance {acc}")
+    print(f"count_attr_celeba --drs ({CELEBA_SAMPLES} samples): {walls['count_attr_celeba']:.2f} s; "
+          f"{saved}; SNGAN-64 DRS batch 256: {CELEBA_SAMPLES} accepted of {drs.proposed} proposed "
+          f"(acceptance {acc:.4f}) in {t_drs:.2f} s = {CELEBA_SAMPLES / t_drs:.2f} accepted/s "
+          f"[{smi}]")
+
+    what = "eval_gan_drs_celeba_with_attr"
+    with PartTimer() as timer:
+        res = drive(what, lambda: eval_gan_drs_celeba_with_attr.main(common + [
+            "-r", str(data), "--exp_name", "p2", "--netG_ckpt_step", str(CELEBA_P2),
+            "--attr", CELEBA_ATTR, "--metric", "all", "--num_real_samples", str(CELEBA_SAMPLES),
+            "--num_fake_samples", str(CELEBA_SAMPLES)]))
+    feats = timer.calls["real features"]  # the fakes first, then the real subsets
+    print(f"{what} --metric all ({CELEBA_SAMPLES} DRS fakes, at most {CELEBA_SAMPLES} reals a "
+          f"subset): {walls[what]:.2f} s wall; fakes drawn {timer.secs['fake generation']:.2f} s, "
+          f"featurised {feats[0]:.2f} s; reals featurised {sum(feats[1:]):.2f} s in "
+          f"{len(feats) - 1} calls; Frechet distances "
+          f"{[round(t, 2) for t in timer.calls['sqrtm']]} s; no port kernel launched [{smi}]")
+    out = work / "p2" / "evaluate" / f"step-{CELEBA_P2}"
+    pr = json.loads((out / f"partial_recall_drs_{CELEBA_ATTR}.json").read_text())
+    fid = json.loads((out / f"fid_drs_{CELEBA_ATTR}.json").read_text())
+    check(all(0.0 <= pr[k]["recall"] <= 1.0 for k in ("attr", "not_attr"))
+          and all(math.isfinite(fid[k]) for k in ("attr", "not_attr"))
+          and res["fid"] == fid, f"evaluation JSONs {pr} {fid}")
+    stats = list((work / "p2" / "metrics" / "fid" / "statistics").glob("*.npz"))
+    check([p.name for p in stats] == [f"fid_stats_sngan_celeba_{CELEBA_ATTR}_cap"
+                                      f"{CELEBA_SAMPLES}_run_{SEED}.npz"], f"stats {stats}")
+    print(f"partial recall {pr}; attribute-sliced FID {fid}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"CelebA phase wall s by CLI {({k: round(v, 2) for k, v in walls.items()})}; no port "
+          f"kernel launched in any; peak device memory {(peak - held) / 2**30:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB that earlier phases still held [{smi}]")
 
 
 def main(argv=None):
@@ -2317,6 +2602,14 @@ def main(argv=None):
     peak = torch.cuda.max_memory_allocated()
     print(f"peak device memory of phase 9 {(peak - held) / 2**30:.2f} GiB above the "
           f"{held / 2**30:.2f} GiB that earlier phases still held [{smi}]")
+
+    # 10. the CelebA-64 path and its attribute study, which have no port kernel
+    phase("10. the CelebA-64 path and the attribute study")
+    (work / "celeba").mkdir()
+    celeba_path(dev, smi, work / "celeba")
+    phase("10b. one SNGAN-64 step and the attribute classifier, card against CPU")
+    sngan_step_card_vs_cpu(dev, smi, size=64)
+    attr_classifier_card_vs_cpu(dev, smi)
 
     shutil.rmtree(work, ignore_errors=True)
     phase("done")

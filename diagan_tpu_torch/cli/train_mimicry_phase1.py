@@ -1,5 +1,5 @@
-"""Phase-1 training for CIFAR-10 (SNGAN-32): train G and D, and record D's
-per-example logits for the LDR scores.
+"""Phase-1 training for CIFAR-10 (SNGAN-32) and CelebA (SNGAN-64): train G
+and D, and record D's per-example logits for the LDR scores.
 
     python -m diagan_tpu_torch.cli.train_mimicry_phase1 -d cifar10 \\
         -r ./dataset/cifar10 --exp_name cifar10
@@ -7,8 +7,10 @@ per-example logits for the LDR scores.
 The argparse surface of the JAX package's train_mimicry_phase1.py, plus
 --device (default cuda; no card and no --device cpu raises), and its
 schedule overrides (cifar10: 50k steps, logits recorded every 100 steps over
-35k-40k) unless --no_schedule_override. --root holds cifar-10-batches-py/;
-without it, a procedural stand-in of 50k images is used. Writes
+35k-40k; celeba: 75k steps, logits over 55k-60k) unless
+--no_schedule_override. --root holds cifar-10-batches-py/, or CelebA's
+celeba_64.npy (or img_align_celeba/) and list_attr_celeba.txt; without
+them, a procedural stand-in (50k CIFAR images, 20k CelebA ones). Writes
 checkpoints/{netG,netD}/*_{step}_steps.pth and logits_netD_eval.pkl under
 {work_dir}/{exp_name}.
 """

@@ -1,6 +1,6 @@
-"""Phase-2 Dia-GAN training for CIFAR-10 (SNGAN-32): LDR-score weighted
-resampling and the twin DRS discriminator (or the --gold / --topk
-baselines).
+"""Phase-2 Dia-GAN training for CIFAR-10 (SNGAN-32) and CelebA (SNGAN-64,
+-d celeba): LDR-score weighted resampling and the twin DRS discriminator
+(or the --gold / --topk baselines).
 
     python -m diagan_tpu_torch.cli.train_mimicry_phase2 -d cifar10 \\
         -r ./dataset/cifar10 --exp_name cifar10_p2 --baseline_exp_name cifar10 \\

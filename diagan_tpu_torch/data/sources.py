@@ -176,10 +176,10 @@ def load_celeba_attrs(attr_file, n: int) -> np.ndarray:
     attr_file = Path(attr_file)
     if not attr_file.is_file():
         return np.zeros((n, 40), np.int8)
-    import pandas as pd
-
-    df = pd.read_csv(attr_file, sep=r"\s+", skiprows=1)
-    return df.to_numpy(dtype=np.int8)[:n]
+    # the count line, the 40 names, then "<file> a_1 ... a_40" per image (the
+    # JAX package parses it with pandas, which the port does not need)
+    return np.loadtxt(attr_file, dtype=np.int8, skiprows=2, usecols=range(1, 41), max_rows=n,
+                      ndmin=2)
 
 
 CELEBA_ATTR_NAMES = [

@@ -287,16 +287,17 @@ def _resize_weights(n_in, n_out):
 
 
 def resize_bilinear(x, size):
-    """jax.image.resize(x, (N, size, size, C), "bilinear") of a float32 NCHW
-    tensor, as two contractions (rows, then columns) with _resize_weights'
-    matrices, each one matrix product over the flattened other axes (on the
-    CPU this sums as the JAX package's eager resize does: the probe's 8 -> 64
-    upsample is bit-exact); an axis already at `size` is left as it is, as in
-    JAX."""
-    for axis in (2, 3):
+    """jax.image.resize(x, (N, h, w, C), "bilinear") of a float32 NCHW
+    tensor, with (h, w) = `size` (an int: a square), as two contractions
+    (rows, then columns) with _resize_weights' matrices, each one matrix
+    product over the flattened other axes (on the CPU this sums as the JAX
+    package's eager resize does: the probe's 8 -> 64 upsample is bit-exact);
+    an axis already at its size is left as it is, as in JAX."""
+    sizes = (size, size) if isinstance(size, int) else tuple(size)
+    for axis, n_out in zip((2, 3), sizes):
         n = x.shape[axis]
-        if n != size:
-            w = _resize_weights(n, size).to(x.device)
+        if n != n_out:
+            w = _resize_weights(n, n_out).to(x.device)
             x = torch.tensordot(x.movedim(axis, -1), w, dims=1).movedim(-1, axis)
     return x
 

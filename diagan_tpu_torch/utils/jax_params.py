@@ -1,5 +1,5 @@
-"""Weight bridge: the JAX package's Flax StyleGAN2, SNGAN and InceptionV3
-variables -> the port's state_dicts.
+"""Weight bridge: the JAX package's Flax StyleGAN2, SNGAN, InceptionV3 and
+small-classifier (models/convnets.py) variables -> the port's state_dicts.
 
 Input is a Flax variable tree as nested dicts of numpy arrays (what
 `jax.device_get(variables["params"])` gives); this module never imports jax.
@@ -25,7 +25,10 @@ Layout conversions:
   - InceptionV3 (eval/inception.py): the Flax auto-named ConvBN_k modules,
     sorted naturally (ConvBN_10 after ConvBN_2, as the JAX loader sorts
     them), go in order to the port's ConvBN modules, which carry
-    torchvision's names in torchvision's order.
+    torchvision's names in torchvision's order;
+  - the convnets: Conv_i / BatchNorm_i -> conv{i} / bn{i}, the Dense layers
+    in order to the port's fc names (Simple3DNet's tree sits under
+    SimpleConvNet_0).
 """
 from __future__ import annotations
 
@@ -295,3 +298,58 @@ def inception_state_dict(variables, module=None):
     for name in names:
         sd[f"{name}.bn.num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+def _convnet_rule(dense_names, prefix=()):
+    """Rule for the convnets (models/convnets.py): Conv_i -> conv{i}, BatchNorm_i
+    -> bn{i}, Dense_i -> dense_names[i], under the module path `prefix`."""
+    def rule(path, arr):
+        coll, rest = path[0], path[1:]
+        if rest[:len(prefix)] != prefix or len(rest) != len(prefix) + 2:
+            return None
+        (layer, leaf) = rest[len(prefix):]
+        kind, _, i = layer.rpartition("_")
+        if not i.isdigit():
+            return None
+        i = int(i)
+        if kind == "BatchNorm" and (coll == "params") == (leaf in ("scale", "bias")):
+            return _bn_leaf(f"bn{i}", leaf, arr)
+        if coll != "params" or leaf not in ("kernel", "bias"):
+            return None
+        if kind == "Conv":
+            return f"conv{i}.{'weight' if leaf == 'kernel' else 'bias'}", (
+                _conv(arr) if leaf == "kernel" else arr)
+        if kind == "Dense" and i < len(dense_names):
+            return f"{dense_names[i]}.{'weight' if leaf == 'kernel' else 'bias'}", (
+                arr.T if leaf == "kernel" else arr)
+        return None
+    return rule
+
+
+def _convnet_state_dict(variables, dense_names, what, prefix=()):
+    tree = {k: variables[k] for k in ("params", "batch_stats") if k in variables}
+    sd = _convert(tree, _convnet_rule(dense_names, prefix), what)
+    for key in [k for k in sd if k.endswith(".running_mean")]:
+        sd[key.replace("running_mean", "num_batches_tracked")] = torch.tensor(0)
+    return sd
+
+
+def simple_convnet_state_dict(variables):
+    """Flax SimpleConvNet variables {"params", "batch_stats"} -> the port's."""
+    return _convnet_state_dict(variables, ("fc",), "SimpleConvNet")
+
+
+def simple3dnet_state_dict(variables):
+    """Flax Simple3DNet variables (a SimpleConvNet_0 inside) -> the port's."""
+    return _convnet_state_dict(variables, ("fc",), "Simple3DNet", prefix=("SimpleConvNet_0",))
+
+
+def simple_net_state_dict(variables):
+    """Flax SimpleNet variables {"params"} -> the port's (its first Dense reads
+    the NHWC flatten, as the port's fc0 does: no permutation)."""
+    return _convnet_state_dict(variables, ("fc0", "fc1", "fc2", "fc3"), "SimpleNet")
+
+
+def attr_classifier_state_dict(variables):
+    """Flax AttrClassifier variables {"params", "batch_stats"} -> the port's."""
+    return _convnet_state_dict(variables, ("fc1", "fc2"), "AttrClassifier")

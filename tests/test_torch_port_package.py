@@ -17,11 +17,15 @@ torch = pytest.importorskip("torch")
 
 from diagan_tpu_torch import resolve_device  # noqa: E402
 from diagan_tpu_torch.cli import (  # noqa: E402
+    count_attr_celeba,
     eval_gan,
+    eval_gan_celeba_with_attr,
     eval_gan_drs,
+    eval_gan_drs_celeba_with_attr,
     eval_gan_drs_with_index,
     eval_gan_with_index,
     generate,
+    train_convnet_celeba,
     train_ffhq,
     train_ffhq_phase2,
     train_mimicry_phase1,
@@ -32,6 +36,12 @@ from diagan_tpu_torch.data.pipeline import DeviceDataSource  # noqa: E402
 from diagan_tpu_torch.eval.drs import DRS  # noqa: E402
 from diagan_tpu_torch.eval.evaluate import Sampler, evaluate_checkpoint  # noqa: E402
 from diagan_tpu_torch.eval.inception import InceptionFeaturizer  # noqa: E402
+from diagan_tpu_torch.models.convnets import (  # noqa: E402
+    AttrClassifier,
+    Simple3DNet,
+    SimpleConvNet,
+    SimpleNet,
+)
 from diagan_tpu_torch.models.registry import get_gan_model  # noqa: E402
 from diagan_tpu_torch.models.sngan import SNGANDiscriminator32, SNGANGenerator32  # noqa: E402
 from diagan_tpu_torch.models.stylegan2 import (  # noqa: E402
@@ -42,7 +52,7 @@ from diagan_tpu_torch.train.stylegan2_trainer import StyleGAN2Trainer  # noqa: E
 from diagan_tpu_torch.train.trainer import LogTrainer  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
-_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(jax|flax|optax|diagan_tpu)(?:\.|\s|$)",
+_FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(jax|flax|optax|msgpack|diagan_tpu)(?:\.|\s|$)",
                         re.MULTILINE)
 # the card's machine has no matplotlib, Pillow or TensorBoard: the port may
 # import them only inside the functions that need them
@@ -78,6 +88,9 @@ def test_port_imports_with_jax_unavailable():
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
         "sys.modules['diagan_tpu'] = None\n"
+        "sys.modules['optax'] = None\n"
+        "sys.modules['msgpack'] = None\n"
+        "sys.modules['pandas'] = None\n"
         "sys.modules['matplotlib'] = None\n"
         "import importlib, pkgutil\n"
         "import diagan_tpu_torch\n"
@@ -97,7 +110,12 @@ def test_port_imports_with_jax_unavailable():
     assert {"diagan_tpu_torch.cli.train_mimicry_phase1", "diagan_tpu_torch.train.trainer",
             "diagan_tpu_torch.data.pipeline", "diagan_tpu_torch.utils.plot",
             "diagan_tpu_torch.eval.inception", "diagan_tpu_torch.eval.metrics",
-            "diagan_tpu_torch.cli.eval_gan_drs"} <= set(names)
+            "diagan_tpu_torch.cli.eval_gan_drs", "diagan_tpu_torch.data.transform",
+            "diagan_tpu_torch.models.convnets", "diagan_tpu_torch.train.classifier",
+            "diagan_tpu_torch.cli.train_convnet_celeba", "diagan_tpu_torch.cli.count_attr_celeba",
+            "diagan_tpu_torch.cli.disc_score_celeba_with_attr",
+            "diagan_tpu_torch.cli.eval_gan_celeba_with_attr",
+            "diagan_tpu_torch.cli.eval_gan_drs_celeba_with_attr"} <= set(names)
 
 
 def _no_card(monkeypatch):
@@ -129,12 +147,23 @@ def _no_card(monkeypatch):
     lambda: eval_gan_drs.main(["--netG_ckpt_step", "1", "--work_dir", "unused"]),
     lambda: eval_gan_with_index.main(["--netG_ckpt_step", "1", "--work_dir", "unused"]),
     lambda: eval_gan_drs_with_index.main(["--netG_ckpt_step", "1", "--work_dir", "unused"]),
+    lambda: SimpleConvNet(),
+    lambda: Simple3DNet(),
+    lambda: SimpleNet(12),
+    lambda: AttrClassifier(),
+    lambda: train_convnet_celeba.main(["--work_dir", "unused"]),
+    lambda: count_attr_celeba.main(["--netG_ckpt_step", "1", "--work_dir", "unused"]),
+    lambda: eval_gan_celeba_with_attr.main(["--netG_ckpt_step", "1", "--work_dir", "unused"]),
+    lambda: eval_gan_drs_celeba_with_attr.main(["--netG_ckpt_step", "1",
+                                                "--work_dir", "unused"]),
 ], ids=["resolve_device", "generator", "discriminator", "drs", "sampler", "generate_cli",
         "train_ffhq_cli", "train_ffhq_phase2_cli", "trainer", "mimicry_phase1_cli",
         "mimicry_phase2_cli", "log_trainer", "device_data_source", "get_gan_model",
         "sngan_generator", "sngan_discriminator", "ffhq_bundle", "inception_featurizer",
         "evaluate_checkpoint", "eval_gan_cli", "eval_gan_drs_cli", "eval_gan_with_index_cli",
-        "eval_gan_drs_with_index_cli"])
+        "eval_gan_drs_with_index_cli", "simple_convnet", "simple3dnet", "simple_net",
+        "attr_classifier", "train_convnet_celeba_cli", "count_attr_celeba_cli",
+        "eval_gan_celeba_with_attr_cli", "eval_gan_drs_celeba_with_attr_cli"])
 def test_entry_points_without_device_raise_when_no_card(monkeypatch, entry):
     _no_card(monkeypatch)
     with pytest.raises(RuntimeError, match="device='cpu'"):

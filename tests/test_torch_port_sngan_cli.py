@@ -208,7 +208,7 @@ def test_flags_not_in_the_port_raise(cli, flag, narrow):
 
 
 def test_models_and_datasets_not_in_the_port_raise(narrow):
-    for args in (["--model", "ssgan"], ["-d", "celeba"], ["-d", "color_mnist"]):
+    for args in (["--model", "ssgan"], ["-d", "mnist_fmnist"], ["-d", "color_mnist"]):
         with pytest.raises(NotImplementedError, match="not in the port yet"):
             train_mimicry_phase1.main(narrow + ["--exp_name", "x"] + args)
 
