@@ -96,7 +96,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      --metric all at 2048 samples; no port kernel may launch; steps/s,
      sweep seconds, DRS accepted/s, classifier images/s, wall s per CLI and
      peak memory; 10b one fused SNGAN-64 step and the AttrClassifier's
-     forward and gradients, card against CPU.
+     forward and gradients, card against CPU;
+ 11. the Colored-MNIST and MNIST-FMNIST Dia-GAN path and the 25-Gaussians
+     toy at full width (MNIST DCGAN G 384/192/96/48, D 16-512, batch 64,
+     n_dis 1; the toy's MLPs of 256): per family phase 1 for 300 steps with
+     train-mode sweeps of the 10,000 images at 100, 200, 300, phase 2 to 400
+     (colour: ldr_conf_1.0_ratio_50, the twin DRS D, DRS at batch 250 and
+     its red/green counts; fmnist: with --gold), the GOLD phase 2 to 400, a
+     PacGAN phase 1 (--num_pack 2) for 100 steps, both bias probes for 1
+     epoch, and cli.train_mimicry_phase1 -d 25gaussian for 500 steps with
+     sweeps; no port kernel may launch; steps/s, sweep ms, DRS accepted/s,
+     the counts, probe images/s, peak memory and profiles of one DRS
+     proposal batch and one DCGAN step; 11b one fused MNIST DCGAN phase-2
+     step (twin D, GOLD), card against CPU, its fp32 gradients with the
+     activations' sides of its float64 run.
 Each phase prints its start, in seconds since the script started.
 The last lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a card it exits 2 and prints no result.
@@ -2119,6 +2132,21 @@ def attr_classifier_card_vs_cpu(dev, smi):
           f"card {err_card:.3e} at {at_card}, CPU {err_cpu:.3e} at {at_cpu} (tol 1e-2) [{smi}]")
 
 
+def timed(owner, attr, log):
+    """Patch owner.attr to append (its positional arguments, synchronised
+    seconds) to log on every call."""
+    orig = getattr(owner, attr)
+
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        log.append((args, time.perf_counter() - t0))
+        return out
+    return mock.patch.object(owner, attr, call)
+
+
 def celeba_path(dev, smi, work):
     """10. The CelebA-64 Dia-GAN path and its attribute study at full width
     (SNGAN-64 ngf 1024, ndf 1024, nz 128, batch 64, n_dis 5, hinge;
@@ -2163,20 +2191,6 @@ def celeba_path(dev, smi, work):
         walls[what] = time.perf_counter() - t0
         no_kernel_launched(what)
         return out
-
-    def timed(owner, attr, log):
-        """Patch owner.attr to append (its positional arguments, synchronised
-        seconds) to log on every call."""
-        orig = getattr(owner, attr)
-
-        def call(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = orig(*args, **kwargs)
-            torch.cuda.synchronize()
-            log.append((args, time.perf_counter() - t0))
-            return out
-        return mock.patch.object(owner, attr, call)
 
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # what earlier phases still hold
@@ -2281,6 +2295,325 @@ def celeba_path(dev, smi, work):
     print(f"CelebA phase wall s by CLI {({k: round(v, 2) for k, v in walls.items()})}; no port "
           f"kernel launched in any; peak device memory {(peak - held) / 2**30:.2f} GiB above the "
           f"{held / 2**30:.2f} GiB that earlier phases still held [{smi}]")
+
+MNIST_N = 10000  # the scripts' --num_data
+MNIST_P1, MNIST_P2, MNIST_PAC, TOY_STEPS = 300, 400, 100, 500  # steps (depth cuts)
+
+
+def write_mnist_idx(root, n, seed=0):
+    """n procedural digits (data/synthetic.py) as MNIST's train idx-ubyte
+    files under root."""
+    import struct
+
+    from diagan_tpu_torch.data.synthetic import synthetic_mnist
+
+    root.mkdir(parents=True, exist_ok=True)
+    for name, arr in zip(("images-idx3", "labels-idx1"), synthetic_mnist(n, seed=seed)):
+        arr = np.ascontiguousarray(arr, dtype=np.uint8)
+        with open(root / f"train-{name}-ubyte", "wb") as f:
+            f.write(struct.pack(">I", 0x0800 | arr.ndim))
+            f.write(struct.pack(">" + "I" * arr.ndim, *arr.shape))
+            f.write(arr.tobytes())
+    return root
+
+
+def check_logits(path, steps, n):
+    import pickle
+
+    with open(path, "rb") as f:
+        logits = pickle.load(f)
+    check(list(logits) == steps and all(type(k) is int for k in logits)
+          and all(v.dtype == np.float64 and v.shape == (n,) and np.isfinite(v).all()
+                  for v in logits.values()), f"{path.name}: steps {list(logits)}")
+
+
+def mnist_path(dev, smi, work):
+    """11. The Colored-MNIST and MNIST-FMNIST Dia-GAN path and the
+    25-Gaussians toy at full width (MNIST DCGAN: G nz 100, widths
+    384/192/96/48; D widths 16-512; batch 64, n_dis 1; the toy's MLPs of 256,
+    n_dis 5) through the CLIs: per family phase 1 for MNIST_P1 steps with
+    train-mode sweeps of the 10,000 images every 100 steps, phase 2 to
+    MNIST_P2 (colour: ldr_conf_1.0_ratio_50, the twin DRS D and DRS at batch
+    250 with its red/green counts; fmnist: the same with --gold), the GOLD
+    phase 2 to MNIST_P2; a PacGAN phase 1 (--num_pack 2, no logits); both
+    bias probes for 1 epoch; train_mimicry_phase1 -d 25gaussian for 500
+    steps with sweeps every 100. Colored-MNIST from 10,000 procedural digits
+    written as MNIST idx files; MNIST-FMNIST (which needs FashionMNIST apart)
+    from the procedural fallback of both. No port kernel may launch. Steps/s,
+    ms per sweep, DRS accepted/s, the counts, probe images/s, peak memory and
+    profiles of one DRS proposal batch and one DCGAN step."""
+    from diagan_tpu_torch.cli import (
+        train_color_mnist_feature,
+        train_mimicry_color_mnist_phase1,
+        train_mimicry_color_mnist_phase2,
+        train_mimicry_color_mnist_phase2_gold,
+        train_mimicry_mnist_fmnist_phase1,
+        train_mimicry_mnist_fmnist_phase2,
+        train_mimicry_mnist_fmnist_phase2_gold,
+        train_mimicry_phase1,
+        train_mnist_fmnist_feature,
+    )
+    from diagan_tpu_torch.eval.drs import DRS
+    from diagan_tpu_torch.ops import _build
+    from diagan_tpu_torch.train import classifier
+    from diagan_tpu_torch.train.logit_recorder import LogitRecorder
+    from diagan_tpu_torch.train.steps import step_draws
+
+    work = work.resolve()  # the probes run in it (their roots are relative)
+    t0 = time.perf_counter()
+    colour = write_mnist_idx(work / "dataset" / "colour_mnist", MNIST_N)
+    fmnist = work / "dataset" / "mnist_fmnist"  # the probes' roots are relative to the cwd
+    print(f"dataset: {MNIST_N} procedural digits as MNIST idx files in "
+          f"{time.perf_counter() - t0:.2f} s")
+    exp = work / "exp_results"
+    common = ["--device", dev.type, "--work_dir", str(exp), "--seed", str(SEED)]
+    p1 = ["--num_steps", str(MNIST_P1), "--logit_save_steps", "100"]
+    p2 = ["--p1_step", str(MNIST_P1), "--num_steps", str(MNIST_P2)]
+    walls, sweeps, draws, fits = {}, [], [], []
+
+    def drive(what, fn):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[what] = time.perf_counter() - t0
+        no_kernel_launched(what)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        with timed(LogitRecorder, "sweep", sweeps), timed(DRS, "generate_images", draws), \
+                timed(classifier, "train_classifier", fits):
+            c1 = drive("colour phase 1", lambda: train_mimicry_color_mnist_phase1.main(
+                common + ["-r", str(colour)] + p1))
+            c2 = drive("colour phase 2", lambda: train_mimicry_color_mnist_phase2.main(
+                common + ["-r", str(colour), "--exp_name", "colour_p2",
+                          "--resample_score", "ldr_conf_1.0_ratio_50"] + p2))
+            c3 = drive("colour GOLD phase 2", lambda: train_mimicry_color_mnist_phase2_gold.main(
+                common + ["-r", str(colour), "--exp_name", "colour_gold"] + p2))
+            f1 = drive("fmnist phase 1", lambda: train_mimicry_mnist_fmnist_phase1.main(
+                common + ["-r", str(fmnist), "--exp_name", "mnist_fmnist_baseline"] + p1))
+            f2 = drive("fmnist phase 2 --gold", lambda: train_mimicry_mnist_fmnist_phase2.main(
+                common + ["-r", str(fmnist), "--exp_name", "fmnist_p2", "--gold",
+                          "--resample_score", "ldr_conf_1.0_ratio_50"] + p2))
+            f3 = drive("fmnist GOLD phase 2", lambda: train_mimicry_mnist_fmnist_phase2_gold.main(
+                common + ["-r", str(fmnist), "--exp_name", "fmnist_gold"] + p2))
+            pac = drive("PacGAN phase 1", lambda: train_mimicry_color_mnist_phase1.main(
+                common + ["-r", str(colour), "--exp_name", "colour_pacgan", "--num_pack", "2",
+                          "--num_steps", str(MNIST_PAC)]))
+            probe = ["--device", dev.type, "--epochs", "1", "--seed", str(SEED)]
+            drive("colour probe", lambda: train_color_mnist_feature.main(probe))
+            drive("fmnist probe", lambda: train_mnist_fmnist_feature.main(probe))
+            toy = drive("25gaussian phase 1", lambda: train_mimicry_phase1.main(
+                common + ["-d", "25gaussian", "--exp_name", "toy", "--num_steps", str(TOY_STEPS),
+                          "--logit_save_steps", "100", "--save_logit_after", "100",
+                          "--stop_save_logit_after", str(TOY_STEPS)]))
+    finally:
+        os.chdir(cwd)
+    peak = torch.cuda.max_memory_allocated()
+
+    steps = list(range(100, MNIST_P1 + 1, 100))
+    for run in ("colour_mnist", "mnist_fmnist_baseline"):
+        check_logits(exp / run / "logits_netD_train.pkl", steps, MNIST_N)
+    check(not list((exp / "colour_pacgan").glob("logits_*")), "PacGAN wrote logits")
+    check_logits(exp / "toy" / "logits_netD_eval.pkl", list(range(100, TOY_STEPS + 1, 100)),
+                 10000)
+    check((exp / "toy" / "images" / f"gaussian_step_{TOY_STEPS}.png").is_file(), "no scatter")
+    for tr, end in ((c1, MNIST_P1), (c2, MNIST_P2), (c3, MNIST_P2), (f1, MNIST_P1),
+                    (f2, MNIST_P2), (f3, MNIST_P2), (pac, MNIST_PAC), (toy, TOY_STEPS)):
+        check(tr.global_step == end, f"a run ended at step {tr.global_step}, not {end}")
+        finite_metrics(tr, ("errD", "errG"))
+    check(f2.cfg.gold and c2.d_drs.count == f2.d_drs.count == MNIST_P2, "phase 2 nets")
+    counts = {"colour p1": c1.channel_counts, "colour p2": c2.channel_counts,
+              "colour p2 DRS": c2.drs_channel_counts, "colour GOLD p2": c3.channel_counts}
+    check(all(sum(c) == 1000 for c in counts.values()), f"red/green counts {counts}")
+    print(f"MNIST path wall s by CLI {({k: round(v, 2) for k, v in walls.items()})}; no port "
+          f"kernel launched in any [{smi}]")
+    print(f"red/green counts of 1000 samples {counts}")
+    # each call's arguments: (the recorder, D, the source, ...)
+    train_sweeps = [t * 1e3 for args, t in sweeps if args[1] is not toy.d.module]
+    toy_sweeps = [t * 1e3 for args, t in sweeps if args[1] is toy.d.module]
+    print(f"train-mode sweeps of {MNIST_N} (40 batches of 256, masks drawn): "
+          f"{[round(t, 2) for t in train_sweeps]} ms; the toy's eval sweeps of 10000 points "
+          f"{[round(t, 2) for t in toy_sweeps]} ms [{smi}]")
+    (drs, *_), t_drs = draws[0]
+    acc = drs.accepted / drs.proposed
+    check(0.0 < acc < 1.0, f"DCGAN DRS acceptance {acc}")
+    print(f"DRS batch 250 (colour phase 2's netD_drs): 1000 accepted of {drs.proposed} proposed "
+          f"(acceptance {acc:.4f}) in {t_drs:.3f} s = {1000 / t_drs:.2f} accepted/s [{smi}]")
+    profile(lambda: drs.disc_fn(drs.gen_fn(drs._latents())),
+            "one DRS proposal batch of 250 (DCGAN G + netD_drs, eval mode)", smi, ())
+    for (args, t), what in zip(fits, ("colour", "fmnist")):
+        n = len(args[1]) // 128 * 128
+        print(f"{what} bias probe (SimpleConvNet, 1 epoch, {n} images at batch 128): "
+              f"{t:.3f} s = {n / t:.2f} images/s [{smi}]")
+    rates = {what: steps_per_s(tr, end + 1, dev, 20) for what, tr, end in (
+        ("colour phase 1", c1, MNIST_P1), ("colour phase 2 (twin D)", c2, MNIST_P2),
+        ("colour GOLD phase 2", c3, MNIST_P2), ("fmnist phase 2 --gold (twin D)", f2, MNIST_P2),
+        ("PacGAN phase 1", pac, MNIST_PAC), ("25gaussian (n_dis 5)", toy, TOY_STEPS))}
+    print(f"steps/s (host clock, 20 synchronised steps): "
+          f"{({k: round(v, 2) for k, v in rates.items()})}; peak device memory of phase 11 "
+          f"{(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.2f} GiB that earlier "
+          f"phases still held [{smi}]")
+    profile(lambda: c1.fused_step(MNIST_P1 + 30, step_draws(SEED, MNIST_P1 + 30, dev)),
+            "one MNIST DCGAN phase-1 step (batch 64, n_dis 1)", smi, ())
+
+
+class ActSides:
+    """The sides (x > 0) of every ReLU and LeakyReLU of one run, in call
+    order (`record`), applied in place of the activations' own decisions in
+    another run (`apply`): torch.nn.functional's relu and leaky_relu patched."""
+
+    def __init__(self):
+        self.sides, self.used = [], 0
+
+    def record(self):
+        F = torch.nn.functional
+        relu, leaky = F.relu, F.leaky_relu
+
+        def keep(orig):
+            def act(x, *a, **k):
+                self.sides.append((x > 0).cpu())
+                return orig(x, *a, **k)
+            return act
+        return mock.patch.multiple(F, relu=keep(relu), leaky_relu=keep(leaky))
+
+    def _next(self, x):
+        self.used += 1
+        return self.sides[self.used - 1].to(x.device)
+
+    def apply(self):
+        self.used = 0
+
+        def relu(x, *a, **k):
+            return torch.where(self._next(x), x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+        def leaky(x, negative_slope=0.01, inplace=False):
+            return torch.where(self._next(x), x, negative_slope * x)
+        return mock.patch.multiple(torch.nn.functional, relu=relu, leaky_relu=leaky)
+
+
+def dcgan_step_card_vs_cpu(dev, smi):
+    """11b. One fused MNIST DCGAN phase-2 step (full width, nc 1 as
+    MNIST-FMNIST, batch 16, n_dis 2, the twin DRS D, GOLD active, ns loss),
+    card against CPU from the same weights, draws and dropout masks, at lr 0
+    (one Adam update moves a weight by ~lr whatever its gradient's size,
+    PERF.md section 6): the metrics within 1e-3 x max(1, |.|), D's and D_drs's
+    BatchNorm running statistics after the step within 1e-4, every update's
+    gradients in float64 within 1e-6 x max(1, max|g|), and each device's
+    fp32 gradients against the float64 CPU ones within 1e-2 with every ReLU
+    and LeakyReLU taking the float64 run's side (ActSides): a pre-activation
+    within fp32 round-off of 0 that takes the other side moves a gradient
+    by (1 - 0.2) x its upstream value, and the card's fp32 gradients read
+    1.27e-2 off at D_drs's conv.8 bias with the sides free (CPU fp32: 8.1e-7;
+    NVIDIA H100 80GB HBM3, 700 W). Both are printed, free and shared."""
+    import copy
+
+    from diagan_tpu_torch.data.arrays import ArrayDataset
+    from diagan_tpu_torch.data.pipeline import DeviceDataSource
+    from diagan_tpu_torch.models.mnist_dcgan import (
+        MNISTDCGANDiscriminator,
+        MNISTDCGANGenerator,
+    )
+    from diagan_tpu_torch.models.registry import OptSpec
+    from diagan_tpu_torch.train.state import NetState
+    from diagan_tpu_torch.train.steps import StepConfig, make_fused_step
+
+    bs, n_dis, n, nc = 16, 2, 64, 1
+    torch.manual_seed(SEED)
+    nets0 = [MNISTDCGANGenerator(nc=nc, device="cpu"), MNISTDCGANDiscriminator(nc=nc, device="cpu"),
+             MNISTDCGANDiscriminator(nc=nc, device="cpu")]
+    rng = np.random.default_rng(SEED)
+    ds = ArrayDataset.from_images(rng.integers(0, 256, (n, 32, 32, nc)).astype(np.uint8))
+    draws = {k: [torch.from_numpy(rng.integers(0, n, bs)) for _ in range(n_dis)]
+             for k in ("real", "drs")}
+    draws.update({k: [torch.from_numpy(rng.standard_normal((bs, 100))) for _ in range(n_dis)]
+                  for k in ("z", "drs_z", "g_z")})
+    masks = [[torch.from_numpy(rng.random(s) < 0.5) for s in nets0[1].dropout_shapes(bs)]
+             for _ in range(n_dis)]
+
+    class Draws:
+        def __init__(self, dtype):
+            self.dtype = dtype
+
+        def dropout_masks(self, i, shapes, device):
+            return [m.to(device) for m in masks[i]]
+
+        def indices(self, kind, i, source, n):
+            return draws[kind][i].to(source.device)
+
+        def normal(self, kind, i, n, nz, device):
+            return draws[kind][i].to(device, self.dtype)
+
+    class Source(DeviceDataSource):
+        def __init__(self, *a, dtype, **k):
+            super().__init__(*a, **k)
+            self.dtype = dtype
+
+        def gather(self, idx):
+            return super().gather(idx).to(self.dtype)
+
+    cfg = StepConfig(n_dis=n_dis, batch_size=bs, nz=100, loss_type="ns", drs_loss_type="ns",
+                     model="dcgan", gold=True, gold_step=0, topk=False, epoch_steps=n // bs,
+                     use_drs=True)
+
+    def run(d, dtype):
+        spec, grads = OptSpec(0.0, (0.5, 0.9)), {}
+        nets = [NetState(copy.deepcopy(m).to(d, dtype), spec, 100, None, ups)
+                for m, ups in zip(nets0, (1, n_dis, n_dis))]
+        for name, net in zip(("G", "D", "D_drs"), nets):
+            named = list(net.module.named_parameters())
+            net.optim.register_step_pre_hook(
+                lambda opt, args, kwargs, name=name, named=named: grads.setdefault(name, []).append(
+                    {k: p.grad.detach().cpu().double() for k, p in named}))
+        source = Source(ds, weights=np.linspace(0.1, 1.0, n), device=d, dtype=dtype)
+        fused = make_fused_step(*nets, cfg, source, Source(ds, device=d, dtype=dtype))
+        metrics = {k: float(v) for k, v in fused(5, Draws(dtype)).items()}
+        stats = {f"{name}.{k}": t.detach().cpu().double()
+                 for name, net in zip(("D", "D_drs"), nets[1:])
+                 for k, t in net.module.state_dict().items() if "running" in k}
+        return metrics, grads, stats
+
+    def worst(got, want):
+        errs = {f"{name}[{u}].{k}": max_err(g[k], w[k]) / max(1.0, w[k].abs().max().item())
+                for name in want for u, (g, w) in enumerate(zip(got[name], want[name]))
+                for k in w}
+        k = max(errs, key=errs.get)
+        return errs[k], k
+
+    cpu = torch.device("cpu")
+    (m_cpu, g_cpu, s_cpu), (m_card, g_card, s_card) = run(cpu, torch.float32), \
+        run(dev, torch.float32)
+    m_err = max(abs(m_card[k] - m_cpu[k]) / max(1.0, abs(m_cpu[k])) for k in m_cpu)
+    check(m_cpu.keys() == m_card.keys() and m_err <= 1e-3, f"metrics {m_cpu} vs {m_card}")
+    s_err = max(max_err(s_card[k], s_cpu[k]) / max(1.0, s_cpu[k].abs().max().item())
+                for k in s_cpu)
+    check(s_err <= 1e-4, f"running statistics card vs CPU err {s_err}")
+    sides = ActSides()
+    with sides.record():
+        _, ref, _ = run(cpu, torch.float64)
+    err64, at64 = worst(run(dev, torch.float64)[1], ref)
+    check(err64 <= 1e-6, f"DCGAN float64 gradients err {err64} at {at64} > 1e-6")
+    free = {"card": worst(g_card, ref), "CPU": worst(g_cpu, ref)}
+    shared = {}
+    for name, d in (("card", dev), ("CPU", cpu)):
+        with sides.apply():
+            shared[name] = worst(run(d, torch.float32)[1], ref)
+        check(sides.used == len(sides.sides), "activation sides out of step")
+    check(max(e for e, _ in shared.values()) <= 1e-2,
+          f"DCGAN fp32 gradients err with the float64 run's activation sides {shared}; tol 1e-2")
+
+    def fmt(errs):
+        return ", ".join(f"{k} {e:.3e} at {at}" for k, (e, at) in errs.items())
+    print(f"card vs CPU, one MNIST DCGAN phase-2 step (full width, nc {nc}, batch {bs}, n_dis "
+          f"{n_dis}, twin D, GOLD, injected draws and masks, lr 0, TF32 off): losses rel err "
+          f"{m_err:.3e} (tol 1e-3); D and D_drs running statistics {s_err:.3e} (tol 1e-4); "
+          f"gradients in float64 {err64:.3e} at {at64} (tol 1e-6); in fp32 against the "
+          f"float64 CPU ones, the activations' sides shared: {fmt(shared)} (tol 1e-2); "
+          f"free: {fmt(free)} [{smi}]")
 
 
 def main(argv=None):
@@ -2610,6 +2943,13 @@ def main(argv=None):
     phase("10b. one SNGAN-64 step and the attribute classifier, card against CPU")
     sngan_step_card_vs_cpu(dev, smi, size=64)
     attr_classifier_card_vs_cpu(dev, smi)
+
+    # 11. the MNIST families and the toy, which have no port kernel
+    phase("11. the Colored-MNIST and MNIST-FMNIST path and the 25-Gaussians toy")
+    (work / "mnist").mkdir()
+    mnist_path(dev, smi, work / "mnist")
+    phase("11b. one MNIST DCGAN step, card against CPU")
+    dcgan_step_card_vs_cpu(dev, smi)
 
     shutil.rmtree(work, ignore_errors=True)
     phase("done")

@@ -67,10 +67,10 @@ class _ConvStack(nn.Module):
     """conv{i} -> bn{i} -> ReLU for each width (and a max pool after every
     `pool_every` of them); forward returns NCHW."""
 
-    def __init__(self, widths, k, scale, pool_every, device):
+    def __init__(self, widths, k, scale, pool_every, device, in_ch=3):
         super().__init__()
         self.n, self.pool_every = len(widths), pool_every
-        for i, (cin, cout) in enumerate(zip((3, *widths[:-1]), widths)):
+        for i, (cin, cout) in enumerate(zip((in_ch, *widths[:-1]), widths)):
             self.add_module(f"conv{i}", _conv(cin, cout, k, scale, device))
             self.add_module(f"bn{i}", BatchNorm(cout, device=device))
 
@@ -85,9 +85,11 @@ class _ConvStack(nn.Module):
 
 
 class SimpleConvNet(_ConvStack):
-    def __init__(self, num_labels=10, kernel_size=7, device="cuda"):
+    def __init__(self, num_labels=10, kernel_size=7, device="cuda", in_ch=3):
+        """`in_ch`: the images' channels (Flax infers them at init; 1 for
+        MNIST-FMNIST)."""
         device = resolve_device(device)
-        super().__init__((16, 32, 64, 128), kernel_size, 2.0, 0, device)
+        super().__init__((16, 32, 64, 128), kernel_size, 2.0, 0, device, in_ch)
         self.fc = _dense(128, num_labels, device)
 
     def forward(self, x):

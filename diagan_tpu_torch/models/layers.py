@@ -82,13 +82,15 @@ class _SpectralNorm(nn.Module):
 
 class SNConv2d(_SpectralNorm):
     def __init__(self, in_ch, out_ch, kernel_size=3, padding=None, bias=True, gain=1.0,
-                 device=None):
+                 device=None, stride=1):
         super().__init__()
         self.padding = kernel_size // 2 if padding is None else padding  # "SAME" at stride 1
+        self.stride = stride
         self._init_sn((out_ch, in_ch, kernel_size, kernel_size), gain, bias, device)
 
     def forward(self, x, update_stats=False):
-        return F.conv2d(x, self.normalized_weight(update_stats), self.bias, padding=self.padding)
+        return F.conv2d(x, self.normalized_weight(update_stats), self.bias, stride=self.stride,
+                        padding=self.padding)
 
 
 class SNLinear(_SpectralNorm):

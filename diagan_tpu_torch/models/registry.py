@@ -1,9 +1,16 @@
 """Model factory: dataset name -> (G, D[, D_drs]) modules and optimizer specs
 (counterpart of diagan_tpu/models/registry.py).
 
-cifar10 -> SNGAN-32, celeba -> SNGAN-64, ffhq -> StyleGAN2 at `size` (default
-256; channel_multiplier 2, style_dim 512, n_mlp 8), each with Adam(2e-4, betas
-(0.0, 0.9)). With drs=True a third discriminator (netD_drs) is built, which always
+  cifar10 -> SNGAN-32, celeba -> SNGAN-64 (nz 128), Adam(2e-4, (0.0, 0.9));
+  color_mnist / mnist_fmnist -> the MNIST DCGAN (nc 3 / 1, nz 100, 32 px,
+    num_pack and use_sn passed through), Adam(1e-4, (0.5, 0.9)), model
+    "dcgan" whatever `model` says;
+  25gaussian -> the toy MLPs (nz 2, points of 2, use_sn passed through),
+    Adam(1e-4, (0.5, 0.999)), model "toy";
+  ffhq -> StyleGAN2 at `size` (default 256; channel_multiplier 2, style_dim
+    512, n_mlp 8), Adam(2e-4, (0.0, 0.9)).
+
+With drs=True a third discriminator (netD_drs) is built, which always
 trains with the ns loss whatever --loss_type says (reference
 predefined_models.py:180). GOLD and top-k are switches on the bundle that the
 trainer reads. The modules are built on `device`, from torch's global
@@ -11,7 +18,7 @@ generator (seed it first: utils.set_seed).
 
 The ffhq bundle serves evaluation (eval.evaluate, the eval CLIs); StyleGAN2
 trains through cli/train_ffhq.py. Not in the port yet, and raising: the ssgan
-and infomax_gan models, bf16, and the MNIST and 25-Gaussians bundles.
+and infomax_gan models, and bf16.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ import functools
 import torch.nn as nn
 
 from diagan_tpu_torch.device import resolve_device
-from diagan_tpu_torch.models import sngan, stylegan2
+from diagan_tpu_torch.models import mnist_dcgan, sngan, stylegan2, toy
 
 
 @dataclasses.dataclass
@@ -70,17 +77,27 @@ def get_gan_model(dataset_name, model="sngan", loss_type="hinge", gold=False, dr
         if model not in _GEN_32:
             raise _not_ported(f"model {model!r}")
         gens, discs = (_GEN_32, _DISC_32) if dataset_name == "cifar10" else (_GEN_64, _DISC_64)
-        size, nz = (32 if dataset_name == "cifar10" else 64), 128
+        size, nz, nc = (32 if dataset_name == "cifar10" else 64), 128, 3
         make_gen, make_disc = gens[model], discs[model]
+        opt = OptSpec(2e-4, (0.0, 0.9))
+    elif dataset_name in ("color_mnist", "mnist_fmnist"):
+        nc, nz, size, model = (3 if dataset_name == "color_mnist" else 1), 100, 32, "dcgan"
+        make_gen = functools.partial(mnist_dcgan.MNISTDCGANGenerator, nz=nz, nc=nc)
+        make_disc = functools.partial(mnist_dcgan.MNISTDCGANDiscriminator, nc=nc,
+                                      num_pack=num_pack, use_sn=kwargs.get("use_sn", False))
+        opt = OptSpec(1e-4, (0.5, 0.9))
+    elif dataset_name == "25gaussian":
+        nz, size, nc, model = 2, 0, 2, "toy"
+        make_gen = toy.ToyGenerator
+        make_disc = functools.partial(toy.ToyDiscriminator, use_sn=kwargs.get("use_sn", False))
+        opt = OptSpec(1e-4, (0.5, 0.999))
     elif dataset_name == "ffhq":
-        size, nz, model = kwargs.get("size", 256), 512, "stylegan"
+        size, nz, nc, model = kwargs.get("size", 256), 512, 3, "stylegan"
         make_gen = functools.partial(_STYLEGAN2_G, size=size)
         make_disc = functools.partial(_STYLEGAN2_D, size=size)
-    elif dataset_name in ("color_mnist", "mnist_fmnist", "25gaussian"):
-        raise _not_ported(f"the {dataset_name} bundle")
+        opt = OptSpec(2e-4, (0.0, 0.9))
     else:
         raise ValueError(f"unknown dataset: {dataset_name}")
-    opt = OptSpec(2e-4, (0.0, 0.9))
     return GANBundle(
         gen=make_gen(device=device),
         disc=make_disc(device=device),
@@ -97,5 +114,5 @@ def get_gan_model(dataset_name, model="sngan", loss_type="hinge", gold=False, dr
         model=model,
         dataset=dataset_name,
         image_size=size,
-        nc=3,
+        nc=nc,
     )

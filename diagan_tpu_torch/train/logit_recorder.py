@@ -1,14 +1,23 @@
 """Per-example logit recorder, the phase-1 diagnosis instrument
 (counterpart of diagan_tpu/train/logit_recorder.py).
 
-Every sweep runs the whole dataset through D (eval mode, update_stats off:
-D's state never moves) and writes one row of a [snapshots, N] fp32 buffer
-on the device. The sweep walks the dataset in order, in batches of
-`batch_size` with a shorter last one (the JAX package pads the last batch
-and masks it; D has no batch coupling in eval mode, so the row is the same
-either way). Only pickling touches the host: `as_dict` gives the reference's
-{int step: np.float64[N]}, `save` pickles it, and `state_dict` /
-`load_state_dict` carry the buffer through a checkpoint.
+Every sweep runs the whole dataset through D with update_stats off (D's
+state never moves) and writes one row of a [snapshots, N] fp32 buffer on
+the device. The sweep walks the dataset in order, in batches of
+`batch_size`:
+  - in eval mode (the SNGAN path's `logits_netD_eval.pkl`) the last batch is
+    the shorter remainder: D has no batch coupling in eval mode, so the row
+    is the one of the JAX package's padded, masked sweep;
+  - in train mode (`save_eval_logits=False`, the MNIST DCGAN's phase 1 and
+    its `logits_netD_train.pkl`) BatchNorm normalises by each batch's
+    statistics, without moving the running ones, and dropout is live: the
+    last batch is padded to `batch_size` with copies of example 0, as the
+    JAX package's full_sweep_index_batches pads it (the copies enter that
+    batch's statistics), and the padded lanes are dropped. Each batch takes
+    fresh keep masks from `dropout_masks(batch_i, shapes)`.
+Only pickling touches the host: `as_dict` gives the reference's {int step:
+np.float64[N]}, `save` pickles it, and `state_dict` / `load_state_dict`
+carry the buffer through a checkpoint.
 """
 from __future__ import annotations
 
@@ -29,23 +38,31 @@ class LogitRecorder:
         self.count = 0
 
     @torch.no_grad()
-    def sweep(self, disc, source):
-        """One fp32 row of D's logits over the whole dataset, D in eval mode."""
+    def sweep(self, disc, source, train=False, dropout_masks=None):
+        """One fp32 row of D's logits over the whole dataset, D in eval mode,
+        or in train mode with each batch's keep masks from
+        dropout_masks(batch_i, shapes) (DCGAN; None: D draws its own)."""
         was_training = disc.training
-        disc.eval()
+        disc.train(train)
         row = torch.empty(self.num_data, dtype=torch.float32, device=self.buffer.device)
-        for lo in range(0, self.num_data, self.batch_size):
-            idx = torch.arange(lo, min(lo + self.batch_size, self.num_data),
-                               device=source.device)
-            row[lo:lo + len(idx)] = disc(source.gather(idx))[0]
+        shapes = disc.dropout_shapes(self.batch_size) if hasattr(disc, "dropout_shapes") else ()
+        for b, lo in enumerate(range(0, self.num_data, self.batch_size)):
+            n = min(self.batch_size, self.num_data - lo)
+            idx = torch.arange(lo, lo + n, device=source.device)
+            if train and n < self.batch_size:  # pad with copies of example 0
+                idx = torch.cat([idx, idx.new_zeros(self.batch_size - n)])
+            kwargs = {}
+            if train and shapes and dropout_masks is not None:
+                kwargs["dropout_masks"] = dropout_masks(b, shapes)
+            row[lo:lo + n] = disc(source.gather(idx), **kwargs)[0][:n]
         disc.train(was_training)
         return row
 
-    def record(self, disc, source, global_step):
+    def record(self, disc, source, global_step, train=False, dropout_masks=None):
         """Sweep and store the row in the next buffer slot."""
         if self.count >= self.max_snapshots:
             raise RuntimeError("logit buffer full; raise max_snapshots")
-        self.buffer[self.count] = self.sweep(disc, source)
+        self.buffer[self.count] = self.sweep(disc, source, train, dropout_masks)
         self.steps[self.count] = int(global_step)
         self.count += 1
 

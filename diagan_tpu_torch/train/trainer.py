@@ -8,18 +8,24 @@ As the JAX trainer (and reference diagan-pkg/diagan/trainer/trainer.py):
     (train/state.py);
   - per-example logit sweeps every `logit_save_steps` inside
     [save_logit_after, stop_save_logit_after], through netD in phase 1 and
-    netD_drs in phase 2, in eval mode, pickled as
-    `logits_{netD|netD_drs}_{eval|train}.pkl` at each checkpoint;
+    netD_drs in phase 2, in eval mode, or with save_eval_logits=False in
+    train mode (batch statistics, live dropout: train/logit_recorder.py),
+    pickled as `logits_{netD|netD_drs}_{eval|train}.pkl` at each
+    checkpoint;
   - checkpoints every save_steps under checkpoints/{netG,netD,netD_drs}/ as
     `{name}_{step}_steps.pth`, plus checkpoints/logit_buffer.npz;
   - resume at global_step = max(G updates, D updates // n_dis); netD_drs can
     start from netD's phase-1 file (weights, Adam state and update count);
   - SIGTERM or KeyboardInterrupt stops after the current step and flushes
     the checkpoints and logit pickles;
-  - scalars lr_{i} in the order [D, D_drs?, G], every log_steps.
+  - scalars lr_{i} in the order [D, D_drs?, G], every log_steps;
+  - every vis_steps a sample grid, or for the 25-Gaussians toy a scatter of
+    1000 G points over 1000 real ones (utils/plot.py plot_gaussian_samples).
 
 Each step's draws come from a torch.Generator seeded from (seed, step)
-(train/steps.py:step_draws), so a resumed run repeats the uninterrupted one.
+(train/steps.py:step_draws), so a resumed run repeats the uninterrupted one;
+a train-mode sweep's keep masks from one seeded from (seed + 2, step), the
+toy's scatter latents from one seeded from (seed + 3, step).
 The JAX trainer's dispatch machinery (scanned chunks, the sweep folded into a
 chunk, the mesh, the profiler hook) has no counterpart: the card runs the
 loop eagerly, and metrics reach the host only at log and print steps.
@@ -39,7 +45,14 @@ from diagan_tpu_torch.train import checkpoint as ckpt
 from diagan_tpu_torch.train.logger import Logger
 from diagan_tpu_torch.train.logit_recorder import LogitRecorder
 from diagan_tpu_torch.train.state import NetState, make_schedule
-from diagan_tpu_torch.train.steps import StepConfig, make_fused_step, step_draws
+from diagan_tpu_torch.train.steps import (
+    StepConfig,
+    draw_keep_masks,
+    make_fused_step,
+    seeded_generator,
+    step_draws,
+)
+from diagan_tpu_torch.utils.plot import plot_gaussian_samples
 
 
 class LogTrainer:
@@ -75,7 +88,8 @@ class LogTrainer:
         device="cuda",
     ):
         """bundle: models.registry.GANBundle (its modules are moved to
-        `device`). dataset: data.arrays.ArrayDataset of uint8 images."""
+        `device`). dataset: data.arrays.ArrayDataset of uint8 images, or
+        data.gaussian.GaussianDataset's float32 points."""
         self.device = resolve_device(device)
         self.output_path = Path(output_path)
         self.log_dir = Path(log_dir or output_path)
@@ -88,7 +102,9 @@ class LogTrainer:
         self.save_logits = save_logits
         self.save_logit_after = save_logit_after
         self.stop_save_logit_after = stop_save_logit_after
+        self.save_eval_logits = save_eval_logits
         self.gold_step = gold_step if gold_step is not None else 0
+        self.bundle = bundle
         self.train_drs = bundle.disc_drs is not None
         self.seed = seed
 
@@ -153,10 +169,11 @@ class LogTrainer:
                 and self.save_logit_after <= step <= self.stop_save_logit_after)
 
     def _record_logits(self, step):
-        # the D sweep in eval mode: an SNGAN D has no batch statistics or
-        # dropout, so the "train" sweep of the JAX trainer is the same forward
         disc = (self.d_drs if self.train_drs else self.d).module
-        self.recorder.record(disc, self.source, step)
+        gen = seeded_generator(self.seed + 2, step, self.device)
+        self.recorder.record(disc, self.source, step, train=not self.save_eval_logits,
+                             dropout_masks=lambda b, shapes: draw_keep_masks(shapes, gen,
+                                                                             self.device))
 
     def _save_checkpoints(self, step):
         ckpt_dir = self.log_dir / "checkpoints"
@@ -196,6 +213,16 @@ class LogTrainer:
         gen.train()
         return out
 
+    def _visualize(self, step):
+        if self.bundle.image_size:
+            self.logger.vis_images(step, self.generate_images().cpu().numpy())
+        elif self.bundle.dataset == "25gaussian":  # reference trainer.py:318-322
+            z = torch.randn((1000, self.bundle.nz), device=self.device,
+                            generator=seeded_generator(self.seed + 3, step, self.device))
+            plot_gaussian_samples(self.generate_images(z=z).cpu().numpy(),
+                                  self.log_dir / "images", step,
+                                  real_points=self.source.dataset.images[:1000])
+
     def _scalars(self, metrics, step):
         row = {k: float(v) for k, v in metrics.items()}
         for name, sched in self._lr_scheds:
@@ -226,7 +253,7 @@ class LogTrainer:
                                           (now - start_time) / max(1, step - start_step))
                     start_time, start_step = now, step
                 if step % self.vis_steps == 0:
-                    self.logger.vis_images(step, self.generate_images().cpu().numpy())
+                    self._visualize(step)
                 if self._logit_window(step):
                     print(f"INFO: logit saving at step {step}...")
                     self._record_logits(step)

@@ -28,7 +28,15 @@ Layout conversions:
     torchvision's names in torchvision's order;
   - the convnets: Conv_i / BatchNorm_i -> conv{i} / bn{i}, the Dense layers
     in order to the port's fc names (Simple3DNet's tree sits under
-    SimpleConvNet_0).
+    SimpleConvNet_0);
+  - the MNIST DCGAN (the reference's torch layout, models/mnist_dcgan.py;
+    the inverse of diagan_tpu/utils/torch_import.py:import_mnist_dcgan_*):
+    Dense_0 -> fc, ConvTranspose_i -> tconv.{0,3,6,9} with the kernel
+    flipped in both spatial axes (torch's transposed conv convolves,
+    lax.conv_transpose correlates), Conv_i / SNConv_i -> conv.{0,3,7,11,15,19},
+    BatchNorm_i -> tconv.{1,4,7} / conv.{4,8,12,16,20}, and D's head Dense_0
+    -> out_d with its rows from the (H, W, C) flatten to the (C, H, W) one;
+  - the toy MLPs: the Dense (or SNDense) layers in order -> fc0..fc3.
 """
 from __future__ import annotations
 
@@ -163,6 +171,32 @@ def _bn_leaf(prefix, leaf, arr):
     return (f"{prefix}.{names[leaf]}", arr) if leaf in names else None
 
 
+def _indexed(name, stem):
+    """i for a Flax auto-name f"{stem}_{i}", else None."""
+    m = re.fullmatch(rf"{stem}_(\d+)", name)
+    return int(m.group(1)) if m else None
+
+
+def _spectral_leaf(coll, inner, layer, prefix, arr):
+    """The weight / bias / u of a Flax SN layer (its sigma is dropped: every
+    forward recomputes it), or None."""
+    if coll == "params" and inner == (layer, "kernel"):
+        return f"{prefix}.weight", arr.T if layer == "Dense_0" else _conv(arr)
+    if coll == "params" and inner == (layer, "bias"):
+        return f"{prefix}.bias", arr
+    if coll == "spectral" and inner == ("SpectralNorm_0", f"{layer}/kernel/u"):
+        return f"{prefix}.weight_u", arr.reshape(-1)
+    if coll == "spectral" and inner == ("SpectralNorm_0", f"{layer}/kernel/sigma"):
+        return None, None
+    return None
+
+
+def _with_batches_tracked(sd):
+    for key in [k for k in sd if k.endswith(".running_mean")]:
+        sd[key.replace("running_mean", "num_batches_tracked")] = torch.tensor(0)
+    return sd
+
+
 _G_BLOCK = {"BatchNorm_0": "b1", "BatchNorm_1": "b2", "Conv_0": "c1", "Conv_1": "c2",
             "Conv_2": "c_sc"}
 
@@ -204,10 +238,8 @@ def sngan_generator_state_dict(variables):
     n_blocks = sum(1 for k in params if k.startswith("GBlock_"))
     ngf = params["GBlock_0"]["Conv_0"]["kernel"].shape[2]
     tree = {"params": params, "batch_stats": variables["batch_stats"]}
-    sd = _convert(tree, _sngan_generator_rule(ngf, n_blocks + 2), "SNGAN generator")
-    for key in [k for k in sd if k.endswith(".running_mean")]:
-        sd[key.replace("running_mean", "num_batches_tracked")] = torch.tensor(0)
-    return sd
+    return _with_batches_tracked(
+        _convert(tree, _sngan_generator_rule(ngf, n_blocks + 2), "SNGAN generator"))
 
 
 def _sngan_discriminator_rule(head_name):
@@ -228,15 +260,7 @@ def _sngan_discriminator_rule(head_name):
                 return None
             prefix, inner = f"{block}.{('c1', 'c2', 'c_sc')[int(c.group(1))]}", rest[1:]
         layer = "Dense_0" if head == "SNDense_0" else "Conv_0"
-        if coll == "params" and inner == (layer, "kernel"):
-            return f"{prefix}.weight", arr.T if layer == "Dense_0" else _conv(arr)
-        if coll == "params" and inner == (layer, "bias"):
-            return f"{prefix}.bias", arr
-        if coll == "spectral" and inner == ("SpectralNorm_0", f"{layer}/kernel/u"):
-            return f"{prefix}.weight_u", arr.reshape(-1)
-        if coll == "spectral" and inner == ("SpectralNorm_0", f"{layer}/kernel/sigma"):
-            return None, None
-        return None
+        return _spectral_leaf(coll, inner, layer, prefix, arr)
     return rule
 
 
@@ -328,10 +352,7 @@ def _convnet_rule(dense_names, prefix=()):
 
 def _convnet_state_dict(variables, dense_names, what, prefix=()):
     tree = {k: variables[k] for k in ("params", "batch_stats") if k in variables}
-    sd = _convert(tree, _convnet_rule(dense_names, prefix), what)
-    for key in [k for k in sd if k.endswith(".running_mean")]:
-        sd[key.replace("running_mean", "num_batches_tracked")] = torch.tensor(0)
-    return sd
+    return _with_batches_tracked(_convert(tree, _convnet_rule(dense_names, prefix), what))
 
 
 def simple_convnet_state_dict(variables):
@@ -353,3 +374,90 @@ def simple_net_state_dict(variables):
 def attr_classifier_state_dict(variables):
     """Flax AttrClassifier variables {"params", "batch_stats"} -> the port's."""
     return _convnet_state_dict(variables, ("fc1", "fc2"), "AttrClassifier")
+
+
+_DCGAN_G_TCONV = (0, 3, 6, 9)
+_DCGAN_G_BN = (1, 4, 7)
+_DCGAN_D_CONV = (0, 3, 7, 11, 15, 19)
+_DCGAN_D_BN = (4, 8, 12, 16, 20)
+
+
+def mnist_dcgan_generator_state_dict(variables):
+    """Flax MNISTDCGANGenerator variables {"params", "batch_stats"} -> the
+    port generator's state_dict."""
+    def rule(path, arr):
+        coll, head, rest = path[0], path[1], path[2:]
+        if coll == "params" and head == "Dense_0" and rest == ("kernel",):
+            return "fc.weight", arr.T
+        if coll == "params" and head == "Dense_0" and rest == ("bias",):
+            return "fc.bias", arr
+        i = _indexed(head, "ConvTranspose")
+        if coll == "params" and i is not None and i < 4 and rest == ("kernel",):
+            return f"tconv.{_DCGAN_G_TCONV[i]}.weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
+        i = _indexed(head, "BatchNorm")
+        if (i is not None and i < 3 and len(rest) == 1
+                and (coll == "params") == (rest[0] in ("scale", "bias"))):
+            return _bn_leaf(f"tconv.{_DCGAN_G_BN[i]}", rest[0], arr)
+        return None
+
+    tree = {"params": variables["params"], "batch_stats": variables["batch_stats"]}
+    return _with_batches_tracked(_convert(tree, rule, "MNIST DCGAN generator"))
+
+
+def mnist_dcgan_discriminator_state_dict(variables):
+    """Flax MNISTDCGANDiscriminator variables {"params", "batch_stats"[,
+    "spectral"]} -> the port discriminator's state_dict."""
+    def rule(path, arr):
+        coll, head, rest = path[0], path[1], path[2:]
+        if coll == "params" and head == "Dense_0" and rest == ("kernel",):
+            return "out_d.weight", arr.reshape(4, 4, 512, 1).transpose(3, 2, 0, 1).reshape(1, -1)
+        if coll == "params" and head == "Dense_0" and rest == ("bias",):
+            return "out_d.bias", arr
+        i = _indexed(head, "Conv")
+        if coll == "params" and i is not None and i < 6 and rest == ("kernel",):
+            return f"conv.{_DCGAN_D_CONV[i]}.weight", _conv(arr)
+        i = _indexed(head, "SNConv")
+        if i is not None and i < 6:
+            return _spectral_leaf(coll, rest, "Conv_0", f"conv.{_DCGAN_D_CONV[i]}", arr)
+        i = _indexed(head, "BatchNorm")
+        if (i is not None and i < 5 and len(rest) == 1
+                and (coll == "params") == (rest[0] in ("scale", "bias"))):
+            return _bn_leaf(f"conv.{_DCGAN_D_BN[i]}", rest[0], arr)
+        return None
+
+    tree = {k: variables[k] for k in ("params", "batch_stats", "spectral") if k in variables}
+    return _with_batches_tracked(_convert(tree, rule, "MNIST DCGAN discriminator"))
+
+
+def _toy_rule(n_dense):
+    """Dense_i (or SNDense_i, then the head Dense_0) in order -> fc{i}."""
+    def rule(path, arr):
+        coll, head, rest = path[0], path[1], path[2:]
+        i = _indexed(head, "SNDense")
+        if i is not None and i < 3:
+            return _spectral_leaf(coll, rest, "Dense_0", f"fc{i}", arr)
+        i = _indexed(head, "Dense")
+        if coll == "params" and i is not None and i < n_dense and len(rest) == 1:
+            name = f"fc{i + 4 - n_dense}"
+            if rest == ("kernel",):
+                return f"{name}.weight", arr.T
+            if rest == ("bias",):
+                return f"{name}.bias", arr
+        return None
+    return rule
+
+
+def _toy_state_dict(variables, what):
+    tree = {k: variables[k] for k in ("params", "spectral") if k in variables}
+    n_dense = sum(1 for k in variables["params"] if _indexed(k, "Dense") is not None)
+    return _convert(tree, _toy_rule(n_dense), what)
+
+
+def toy_generator_state_dict(variables):
+    """Flax ToyGenerator variables {"params"} -> the port's."""
+    return _toy_state_dict(variables, "toy generator")
+
+
+def toy_discriminator_state_dict(variables):
+    """Flax ToyDiscriminator variables {"params"[, "spectral"]} -> the port's."""
+    return _toy_state_dict(variables, "toy discriminator")

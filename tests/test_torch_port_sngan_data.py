@@ -109,9 +109,8 @@ def test_array_dataset_and_predefined_cifar10_match_jax(tmp_path):
     a = TA.ArrayDataset.from_images(images[:3], targets=[1, 2, 3])
     b = JA.ArrayDataset.from_images(images[:3], targets=[1, 2, 3])
     assert a.targets.dtype == b.targets.dtype and a.targets.tolist() == b.targets.tolist()
-    for name in TPD.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="not in the port yet"):
-            TPD.get_predefined_dataset(name, tmp_path)
+    with pytest.raises(ValueError, match="unknown dataset"):
+        TPD.get_predefined_dataset("imagenet", tmp_path)
 
 
 def test_gather_matches_jax_exactly():
