@@ -109,7 +109,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      the counts, probe images/s, peak memory and profiles of one DRS
      proposal batch and one DCGAN step; 11b one fused MNIST DCGAN phase-2
      step (twin D, GOLD), card against CPU, its fp32 gradients with the
-     activations' sides of its float64 run.
+     activations' sides of its float64 run;
+ 12. the CAE reconstruction-error protocol and the Inclusive GAN on phase
+     11's runs: colour phase 1 resumed to step 400, cli.train_cae (3 epochs
+     of 50; the scripts' 50,000 generated images, through DRS for the
+     phase-2 run) on both colour runs and the FMNIST run,
+     cli.eval_ae_score --use_loss, cli.train_mimicry_inclusive for 4 steps
+     at full DCGAN and Inception width (its construction registers the
+     10,000 real features and refreshes the nearest latents: 100,000
+     latents at 299 px) and cli.train_cae_inclusive; no port kernel may
+     launch; images/s, CAE images/s, RE sweep ms, s per refresh, ms per
+     Inclusive step, peak memory and a profile of one Inclusive step; 12b
+     the CAE's forwards and the Inclusive hook with its G gradients, card
+     against CPU.
 Each phase prints its start, in seconds since the script started.
 The last lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a card it exits 2 and prints no result.
@@ -2616,6 +2628,244 @@ def dcgan_step_card_vs_cpu(dev, smi):
           f"free: {fmt(free)} [{smi}]")
 
 
+CAE_EPOCHS, INCL_STEPS = 3, 4  # depth cuts: the scripts' 50 CAE epochs, 20,000 steps
+CAE_GEN = 50000  # the CAE scripts' generated images (generate_dataset's count)
+
+
+def cae_inclusive_path(dev, smi, work):
+    """12. The CAE reconstruction-error protocol and the Inclusive GAN on
+    phase 11's runs (`work` is phase 11's directory), through the CLIs at the
+    scripts' widths and counts: colour phase 1 resumed with its own CLI to
+    MNIST_P2 (the phase-2 run's last step, so both runs have a G there);
+    cli.train_cae on the colour baseline (plain sampler) and on the phase-2
+    run (DRS at batch 256 through netD_drs), each on the scripts' 50,000
+    generated images and the 10,000 real ones; cli.eval_ae_score --use_loss
+    (its CSV); cli.train_cae -d mnist_fmnist on phase 11's FMNIST run (CAE32,
+    nc 1); cli.train_mimicry_inclusive at full DCGAN and full Inception width
+    on the 10,000 Colored-MNIST images for INCL_STEPS steps (its construction
+    registers the real features and refreshes the nearest latents: 100,000
+    latents through G and the Inception at 299); cli.train_cae_inclusive on
+    its checkpoint. Cuts (depth only): CAE_EPOCHS CAE epochs of the scripts'
+    50, INCL_STEPS Inclusive steps of 20,000 (the refresh every 3120 steps is
+    not reached after construction). No port kernel may launch. Readings:
+    generated images/s, CAE train images/s, ms per RE sweep of 10,000,
+    Inclusive ms per step beside the plain DCGAN step's, s per refresh, s to
+    register the real features, the eval_ae_score rows, peak memory, the
+    phase's wall s and a profile of one Inclusive step."""
+    import pickle
+
+    from diagan_tpu_torch.cli import (
+        eval_ae_score,
+        train_cae,
+        train_cae_inclusive,
+        train_mimicry_color_mnist_phase1,
+        train_mimicry_inclusive,
+    )
+    from diagan_tpu_torch.eval import cae_protocol
+    from diagan_tpu_torch.eval.drs import DRS
+    from diagan_tpu_torch.eval.inception import InceptionFeaturizer
+    from diagan_tpu_torch.ops import _build
+    from diagan_tpu_torch.train.inclusive import InclusiveTrainer
+    from diagan_tpu_torch.train.steps import step_draws
+
+    t_phase = time.perf_counter()
+    work = work.resolve()
+    exp = work / "exp_results"
+    colour, fmnist = work / "dataset" / "colour_mnist", work / "dataset" / "mnist_fmnist"
+    common = ["--device", dev.type, "--work_dir", str(exp), "--seed", str(SEED),
+              "--num_data", str(MNIST_N)]
+    cae = ["--epochs", str(CAE_EPOCHS)]
+    g_step = {"colour_mnist": MNIST_P2, "colour_p2": MNIST_P2,
+              "mnist_fmnist_baseline": MNIST_P1, "colour_inclusive": INCL_STEPS}
+    walls, gens, fits, sweeps, draws, feats, refreshes = {}, [], [], [], [], [], []
+
+    def drive(what, fn):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[what] = time.perf_counter() - t0
+        no_kernel_launched(what)
+        return out
+
+    re_runs = {}
+
+    def cae_run(what, cli, dataset, root, run):
+        re_runs[run] = drive(what, lambda: cli.main(common + cae + [
+            "-d", dataset, "-r", str(root), "--exp_name", run, "--netG_step", str(g_step[run])]))
+
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    cwd = os.getcwd()
+    os.chdir(work)  # eval_ae_score writes its CSV to the cwd
+    try:
+        with timed(train_cae, "generate_dataset", gens), timed(train_cae, "train_cae", fits), \
+                timed(cae_protocol, "reconstruction_errors", sweeps), \
+                timed(DRS, "generate_images", draws), \
+                timed(InceptionFeaturizer, "features", feats), \
+                timed(InclusiveTrainer, "refresh_nearest_latents", refreshes):
+            base = drive("colour phase 1 resumed", lambda: train_mimicry_color_mnist_phase1.main(
+                common + ["-r", str(colour), "--num_steps", str(MNIST_P2), "--logit_save_steps",
+                          "100", "--auto_resume"]))
+            cae_run("train_cae colour baseline", train_cae, "color_mnist", colour, "colour_mnist")
+            cae_run("train_cae colour phase 2", train_cae, "color_mnist", colour, "colour_p2")
+            rows = drive("eval_ae_score", lambda: eval_ae_score.main([
+                "-d", "color_mnist", "-r", str(colour), "--device", dev.type,
+                "--baseline_exp_path", str(exp / "colour_mnist"),
+                "--resample_exp_path", str(exp / "colour_p2"), "--p1_step", str(MNIST_P1),
+                "--p2_step", str(MNIST_P2), "--resample_score", "ldr_conf_1.0_ratio_50",
+                "--use_loss", "--seed", str(SEED), "--num_data", str(MNIST_N),
+                "--name", "chip_smoke"]))
+            cae_run("train_cae -d mnist_fmnist", train_cae, "mnist_fmnist", fmnist,
+                    "mnist_fmnist_baseline")
+            incl = drive("train_mimicry_inclusive", lambda: train_mimicry_inclusive.main(
+                common + ["-r", str(colour), "--exp_name", "colour_inclusive", "--num_steps",
+                          str(INCL_STEPS)]))
+            cae_run("train_cae_inclusive", train_cae_inclusive, "color_mnist", colour,
+                    "colour_inclusive")
+    finally:
+        os.chdir(cwd)
+    peak = torch.cuda.max_memory_allocated()
+
+    for run, r in re_runs.items():
+        check(r.shape == (MNIST_N, CAE_EPOCHS) and bool(np.isfinite(r).all()),
+              f"{run}: RE matrix {r.shape}, finite {np.isfinite(r).all()}")
+        check((exp / run / "cae_checkpoints" / f"{g_step[run]}_steps_seed{SEED}"
+               / "cae_training_loss.npy").is_file(), f"{run}: no cae_training_loss.npy")
+    csv = work / "re_color_mnist_chip_smoke.csv"
+    check(csv.is_file() and [r[2] for r in rows] == ["all", "green"]
+          and all(math.isfinite(v) for r in rows for v in r[3:]), f"eval_ae_score rows {rows}")
+    check(base.global_step == MNIST_P2 and incl.global_step == INCL_STEPS, "a run's last step")
+    m = {k: float(v) for k, v in incl.metrics.items()}
+    check({"reconsG", "itpG"} <= set(m) and all(math.isfinite(v) for v in m.values()),
+          f"Inclusive metrics {m}")
+    check(len(draws) == 1 and len(gens) == 4, f"DRS calls {len(draws)}, generations {len(gens)}")
+    for run in re_runs:
+        with open(exp / run / f"netG_{g_step[run]}_steps_seed{SEED}_generated_dataset.pkl",
+                  "rb") as f:
+            gen_imgs = pickle.load(f)
+        nc = 1 if run == "mnist_fmnist_baseline" else 3
+        check(gen_imgs.dtype == np.uint8 and gen_imgs.shape == (CAE_GEN, 32, 32, nc),
+              f"{run}: generated {gen_imgs.dtype} {gen_imgs.shape}")
+    (drs, *_), t_drs = draws[0]
+    print(f"CAE and Inclusive wall s by CLI {({k: round(v, 2) for k, v in walls.items()})}; no "
+          f"port kernel launched in any [{smi}]")
+    for (args, t), run in zip(gens, ("colour baseline", "colour phase 2 (DRS)", "fmnist",
+                                     "Inclusive")):
+        print(f"generated {CAE_GEN} for the CAE ({run}): {t:.3f} s = {CAE_GEN / t:.2f} "
+              f"images/s [{smi}]")
+    print(f"DRS batch 256: {drs.accepted} accepted of {drs.proposed} proposed (acceptance "
+          f"{drs.accepted / drs.proposed:.4f}) in {t_drs:.3f} s = {drs.accepted / t_drs:.2f} "
+          f"accepted/s [{smi}]")
+    sweep_s = [t for _, t in sweeps]
+    n_train = CAE_EPOCHS * (CAE_GEN // 128) * 128
+    for k, ((args, t), run) in enumerate(zip(fits, re_runs)):
+        own = sum(sweep_s[k * CAE_EPOCHS:(k + 1) * CAE_EPOCHS])
+        print(f"CAE {run} ({'CAE32 nc 1' if 'fmnist' in run else 'CAE32 nc 3'}): "
+              f"{CAE_EPOCHS} epochs of {CAE_GEN} at batch 128 in {t - own:.3f} s = "
+              f"{n_train / (t - own):.2f} images/s, then {CAE_EPOCHS} RE sweeps [{smi}]")
+    print(f"RE sweeps of {MNIST_N} (batches of 256, eval mode): "
+          f"{[round(t * 1e3, 2) for t in sweep_s]} ms [{smi}]")
+    print(f"eval_ae_score rows (type, baseline RE, resampled RE, difference %; ratio 0.99, "
+          f"seed {SEED}): {[(r[2], *map(float, r[3:])) for r in rows]} [{smi}]")
+    (_, t_feats), = feats
+    print(f"Inclusive: real features of {MNIST_N} images (Inception at 299, batch 100) "
+          f"{t_feats:.3f} s; nearest-latent refresh ({10 * MNIST_N} latents, chunks of 500) "
+          f"{[round(t, 3) for _, t in refreshes]} s; metrics {m} [{smi}]")
+    incl_sps = steps_per_s(incl, INCL_STEPS + 1, dev, 5)
+    plain_sps = steps_per_s(base, MNIST_P2 + 1, dev, 20)
+    print(f"Inclusive step (batch 64, n_dis 1; G's loss with 3 G and 3 Inception forwards at "
+          f"299 and their backward) {1e3 / incl_sps:.2f} ms; the plain DCGAN phase-1 step in "
+          f"this process {1e3 / plain_sps:.2f} ms (host clock, synchronised) [{smi}]")
+    print(f"peak device memory of phase 12 {(peak - held) / 2**30:.3f} GiB above the "
+          f"{held / 2**30:.2f} GiB that earlier phases still held; phase 12 wall "
+          f"{time.perf_counter() - t_phase:.2f} s [{smi}]")
+    s = INCL_STEPS + 10
+    profile(lambda: incl.fused_step(s, step_draws(SEED, s, dev)),
+            "one Inclusive step (batch 64, n_dis 1)", smi, ())
+
+
+def cae_inclusive_card_vs_cpu(dev, smi):
+    """12b. The CAE (CAE32, nc 3, batch 16) eval- and train-mode forwards,
+    and the Inclusive hook (the MNIST DCGAN, the FID InceptionV3 at 299 with
+    its random weights, batch 2, fixed draws) with its G gradients, card
+    against CPU from the same weights. The hook's real features are G's own
+    raw features scaled by 1 + 0.1 N(0, 1), so that its distances depend on
+    G (raw pool3 under random weights is tiny beside unit-scale features).
+    The CAE within 1e-3 x max(1, max|out|); the hook's values within 1e-3
+    relative, each G gradient within 1e-2 of its tensor's max|g| with every
+    ReLU taking the CPU run's side (ActSides)."""
+    import copy
+
+    from diagan_tpu_torch.eval.inception import InceptionFeaturizer, pool3_with_grad
+    from diagan_tpu_torch.models.cae import CAE32
+    from diagan_tpu_torch.models.mnist_dcgan import MNISTDCGANGenerator
+    from diagan_tpu_torch.train.inclusive import InclusiveLoss
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(np.tanh(rng.standard_normal((16, 32, 32, 3))).astype(np.float32))
+    cae_cpu = CAE32(3, seed=SEED, device="cpu")
+    cae_card = copy.deepcopy(cae_cpu).to(dev)
+    cae_err = 0.0
+    with torch.no_grad():
+        for mode in ("eval", "train"):
+            want = getattr(cae_cpu, mode)()(x)
+            got = getattr(cae_card, mode)()(x.to(dev)).cpu()
+            cae_err = max(cae_err, max_err(got, want) / max(1.0, want.abs().max().item()))
+    check(cae_err <= 1e-3, f"CAE card vs CPU err {cae_err}")
+
+    bs, n, nz = 2, 8, 100
+    torch.manual_seed(SEED)
+    g_cpu = MNISTDCGANGenerator(nc=3, device="cpu")
+    incep = InceptionFeaturizer(device="cpu").model.requires_grad_(False)
+    nearest = torch.from_numpy(rng.standard_normal((n, nz)).astype(np.float32))
+    with torch.no_grad():
+        raw = pool3_with_grad(incep, g_cpu(nearest).permute(0, 3, 1, 2))
+    feats = raw * (1 + 0.1 * torch.from_numpy(rng.standard_normal(raw.shape).astype(np.float32)))
+    fixed = {"inclusive_idx1": torch.from_numpy(rng.integers(0, n, bs)),
+             "inclusive_idx2": torch.from_numpy(rng.integers(0, n, bs)),
+             "inclusive_z1": torch.from_numpy(rng.standard_normal((bs, nz)).astype(np.float32)),
+             "inclusive_z2": torch.from_numpy(rng.standard_normal((bs, nz)).astype(np.float32)),
+             "inclusive_alpha": torch.from_numpy(rng.random(bs).astype(np.float32))}
+
+    class Draws:
+        def indices(self, kind, i, source, n):
+            return fixed[kind].to(source.train_feats.device)
+
+        def normal(self, kind, i, n, nz, device):
+            return fixed[kind].to(device)
+
+        def uniform(self, kind, i, n, device):
+            return fixed[kind].to(device)
+
+    def run(d):
+        gen = copy.deepcopy(g_cpu).to(d).train()
+        hook = InclusiveLoss(copy.deepcopy(incep).to(d), feats.to(d), bs, nz)
+        hook.nearest_latent = nearest.to(d)
+        metrics = {}
+        loss = hook(gen, Draws(), 0, metrics)
+        grads = torch.autograd.grad(loss, list(gen.parameters()))
+        metrics["loss"] = loss
+        return {k: float(v.detach()) for k, v in metrics.items()}, [g.cpu() for g in grads]
+
+    sides = ActSides()
+    with sides.record():
+        m_cpu, g_cpu_grads = run(cpu)
+    with sides.apply():
+        m_card, g_card_grads = run(dev)
+    check(sides.used == len(sides.sides), "activation sides out of step")
+    m_err = max(abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu)
+    g_err = max(max_err(a, b) / b.abs().max().item() for a, b in zip(g_card_grads, g_cpu_grads))
+    check(m_err <= 1e-3 and g_err <= 1e-2, f"Inclusive hook card vs CPU: values {m_err}, "
+          f"gradients {g_err}")
+    print(f"card vs CPU, TF32 off: CAE32 forwards (eval, train; batch 16) rel err "
+          f"{cae_err:.3e} (tol 1e-3); the Inclusive hook (DCGAN G, Inception at 299, batch 2) "
+          f"loss / reconsG / itpG rel err {m_err:.3e} (tol 1e-3), G gradients with the CPU "
+          f"run's ReLU sides {g_err:.3e} of each tensor's max|g| (tol 1e-2); values {m_cpu}; "
+          f"max|g| {max(g.abs().max().item() for g in g_cpu_grads):.3e} [{smi}]")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -2950,6 +3200,12 @@ def main(argv=None):
     mnist_path(dev, smi, work / "mnist")
     phase("11b. one MNIST DCGAN step, card against CPU")
     dcgan_step_card_vs_cpu(dev, smi)
+
+    # 12. the CAE protocol and Inclusive GAN on phase 11's runs, no port kernel
+    phase("12. the CAE reconstruction-error protocol and Inclusive GAN")
+    cae_inclusive_path(dev, smi, work / "mnist")
+    phase("12b. the CAE and the Inclusive hook, card against CPU")
+    cae_inclusive_card_vs_cpu(dev, smi)
 
     shutil.rmtree(work, ignore_errors=True)
     phase("done")

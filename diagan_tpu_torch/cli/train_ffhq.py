@@ -79,7 +79,7 @@ def make_trainer(args, sample_weights=None, drs=False, r1=None):
     unported = [f"--{f}" for f in NOT_PORTED if getattr(args, f) not in (False, None)]
     if unported:
         raise NotImplementedError(f"{', '.join(unported)}: not in the port yet "
-                                  "(see ROADMAP.md, Queue A item 10)")
+                                  "(see ROADMAP.md, Queue A item 4)")
     torch.manual_seed(args.seed)
     np.random.seed(args.seed)
     output_dir = Path(args.work_dir) / args.exp_name

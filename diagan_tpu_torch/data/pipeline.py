@@ -5,7 +5,8 @@ batch is a gather and a dequantize in fp32:
 
     batch = images[idx].float() / 127.5 - 1
 
-the JAX package's arithmetic, so both packages give the same bits. The
+the JAX package's formula, with the bits of its eager form (jitted on the
+CPU, XLA rounds 205 of the 256 codes one ulp away from this division). The
 25-Gaussians toy set holds float32 points (N, 2), which a batch gathers as
 they are (`quantized` False, as the JAX source's `_quantized`). Indices
 are drawn on the device from an explicit torch.Generator: uniform with

@@ -287,17 +287,18 @@ def _resize_weights(n_in, n_out):
 
 
 def resize_bilinear(x, size):
-    """jax.image.resize(x, (N, h, w, C), "bilinear") of a float32 NCHW
-    tensor, with (h, w) = `size` (an int: a square), as two contractions
-    (rows, then columns) with _resize_weights' matrices, each one matrix
-    product over the flattened other axes (on the CPU this sums as the JAX
-    package's eager resize does: the probe's 8 -> 64 upsample is bit-exact);
-    an axis already at its size is left as it is, as in JAX."""
+    """jax.image.resize(x, (N, h, w, C), "bilinear") of a float NCHW tensor
+    (the weights cast to its dtype), with (h, w) = `size` (an int: a
+    square), as two contractions (rows, then columns) with _resize_weights'
+    matrices, each one matrix product over the flattened other axes (on the
+    CPU this sums as the JAX package's eager resize does: the probe's
+    8 -> 64 upsample is bit-exact); an axis already at its size is left as
+    it is, as in JAX."""
     sizes = (size, size) if isinstance(size, int) else tuple(size)
     for axis, n_out in zip((2, 3), sizes):
         n = x.shape[axis]
         if n != n_out:
-            w = _resize_weights(n, n_out).to(x.device)
+            w = _resize_weights(n, n_out).to(x.device, x.dtype)
             x = torch.tensordot(x.movedim(axis, -1), w, dims=1).movedim(-1, axis)
     return x
 
@@ -328,6 +329,13 @@ def standardizing_affine(probe_features):
     return shift, scale / np.sqrt((z**2).mean() + 1e-12)
 
 
+def _resize_to_network(x):
+    """A float NCHW batch resized to INCEPTION_SIZE, one channel repeated to
+    three (the JAX package's fwd_one and _resize_for_inception)."""
+    x = resize_bilinear(x, INCEPTION_SIZE)
+    return x.repeat(1, 3, 1, 1) if x.shape[1] == 1 else x
+
+
 def inception_input(images, device):
     """uint8 or float [-1, 1] NHWC images (numpy or tensor) -> the network's
     float32 NCHW input at 299 on `device`: uint8 crosses as uint8 and becomes
@@ -336,8 +344,18 @@ def inception_input(images, device):
     x = torch.as_tensor(images).to(device)
     if x.dtype == torch.uint8:
         x = x.float() / 127.5 - 1.0
-    x = resize_bilinear(x.float().permute(0, 3, 1, 2), INCEPTION_SIZE)
-    return x.repeat(1, 3, 1, 1) if x.shape[1] == 1 else x
+    return _resize_to_network(x.float().permute(0, 3, 1, 2))
+
+
+def pool3_with_grad(model, x):
+    """Raw pool3 features of a float [-1, 1] NCHW batch (a G's output), with
+    gradients back to x: the JAX package's _resize_for_inception and
+    incep_model.apply (train/inclusive.py:35-40, 66-68), no probe affine.
+    resize_bilinear is two contractions, so it is differentiable; the
+    network's BatchNorm uses its running statistics in either mode; the
+    convolutions run with TF32 off."""
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        return model(_resize_to_network(x))[0]
 
 
 class InceptionFeaturizer:

@@ -30,35 +30,24 @@ normal, scale 1; SimpleConvNet's convs kaiming normal, scale 2), zero biases.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from diagan_tpu_torch.device import resolve_device
-from diagan_tpu_torch.models.layers import BatchNorm
-
-_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
-
-
-def _variance_scaling_(weight, scale):
-    """Flax's variance_scaling(scale, "fan_in", "truncated_normal")."""
-    fan_in = weight[0].numel()
-    std = math.sqrt(scale / fan_in) / _TRUNC_STD
-    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
+from diagan_tpu_torch.models.layers import BatchNorm, variance_scaling_
 
 
 def _conv(cin, cout, k, scale, device):
     conv = nn.Conv2d(cin, cout, k, padding=k // 2, device=device)
-    _variance_scaling_(conv.weight, scale)
+    variance_scaling_(conv.weight, scale)
     nn.init.zeros_(conv.bias)
     return conv
 
 
 def _dense(cin, cout, device):
     fc = nn.Linear(cin, cout, device=device)
-    _variance_scaling_(fc.weight, 1.0)
+    variance_scaling_(fc.weight, 1.0)
     nn.init.zeros_(fc.bias)
     return fc
 

@@ -15,7 +15,9 @@ Two layers keep the JAX package's (Flax's) semantics, not torch's:
     momentum 0.01) with the biased batch variance, eps 1e-5, and only when
     update_stats is true, so a train-mode forward can use batch statistics
     and leave the buffers alone (the fakes of a D update). In eval mode it
-    uses the running statistics. The state_dict is torch's BatchNorm2d's.
+    uses the running statistics. It normalises NCHW per channel and (N, F)
+    per feature, as Flax's BatchNorm on the last axis does. The state_dict
+    is torch's BatchNorm2d's.
 
 Block layout and initialisation as torch-mimicry's SNGAN (and the JAX
 package's): nearest 2x upsample, 2x2 mean pool, global sum pool,
@@ -31,9 +33,19 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 SQRT2 = math.sqrt(2.0)
+_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 BN_MOMENTUM = 0.99  # Flax's: running = 0.99 * running + 0.01 * batch statistic
 BN_EPS = 1e-5
 SN_EPS = 1e-12
+
+
+def variance_scaling_(weight, scale=1.0, fan_in=None, generator=None):
+    """Flax's variance_scaling(scale, "fan_in", "truncated_normal") in place
+    (scale 1: lecun_normal, Flax's default kernel initialiser); fan_in
+    defaults to weight[0].numel(), a conv's or dense layer's."""
+    fan_in = weight[0].numel() if fan_in is None else fan_in
+    std = math.sqrt(scale / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
 def _l2n(x):
@@ -118,7 +130,8 @@ def linear(in_features, out_features, gain=1.0, device=None):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over NCHW channels with Flax's semantics (module docstring)."""
+    """BatchNorm over NCHW channels or (N, F) features with Flax's semantics
+    (module docstring)."""
 
     def __init__(self, num_features, device=None):
         super().__init__()
@@ -135,7 +148,8 @@ class BatchNorm(nn.Module):
                                 False, 0.0, BN_EPS)
         if update_stats:
             with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+                dims = (0,) + tuple(range(2, x.ndim))
+                var, mean = torch.var_mean(x, dim=dims, unbiased=False)
                 self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
                 self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
                 self.num_batches_tracked.add_(1)

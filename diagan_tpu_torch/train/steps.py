@@ -26,13 +26,23 @@ forward).
 
 A step's draws come, in that order, from one object with `dropout_masks(i,
 shapes, device)` (DCGAN only, first in each iteration), `indices(kind, i,
-source, n)` (kind "real" or "drs") and `normal(kind, i, n, nz, device)`
-(kind "z", "drs_z" or "g_z"): `GeneratorDraws` over a torch.Generator seeded
-from (seed, global step), so a resumed run repeats the uninterrupted one; a
-test hands in the JAX package's draws instead.
+source, n)` (kind "real" or "drs"), `normal(kind, i, n, nz, device)` (kind
+"z", "drs_z" or "g_z") and `uniform(kind, i, n, device)`: `GeneratorDraws`
+over a torch.Generator seeded from (seed, global step), so a resumed run
+repeats the uninterrupted one; a test hands in the JAX package's draws
+instead.
+
+The g_aux_loss hook (the JAX package's, steps.py:140-142, 220-221): a
+callable g_aux_loss(gen, draws, i, metrics) -> loss term, called in the G
+update after G's loss on D(G(z)), with G's module (its parameters carry the
+gradient), the step's draws object (its kinds are the hook's own, drawn after
+"g_z"), the iteration and a dict that takes the hook's metrics. Its term is
+added to G's loss and its metrics join the step's. Inclusive GAN's
+reconstruction and interpolation terms are one (train/inclusive.py).
 
 Not in the port yet, and raising: the JAX package's step fusions
-(concat_d, fuse_g, simultaneous_g) and the SSGAN / InfoMax auxiliary terms.
+(concat_d, fuse_g, simultaneous_g; simultaneous_g with a hook raises
+ValueError, as in the JAX package) and the SSGAN / InfoMax auxiliary terms.
 """
 from __future__ import annotations
 
@@ -83,6 +93,9 @@ class GeneratorDraws:
     def normal(self, kind, i, n, nz, device):
         return torch.randn((n, nz), generator=self.generator, device=device)
 
+    def uniform(self, kind, i, n, device):
+        return torch.rand((n,), generator=self.generator, device=device)
+
 
 def seeded_generator(seed, step, device):
     """A torch.Generator on `device` seeded from (seed, step)."""
@@ -94,11 +107,15 @@ def step_draws(seed, global_step, device):
     return GeneratorDraws(seeded_generator(seed, global_step, device))
 
 
-def make_fused_step(gen, disc, disc_drs, cfg: StepConfig, source, source_drs=None):
+def make_fused_step(gen, disc, disc_drs, cfg: StepConfig, source, source_drs=None,
+                    g_aux_loss=None):
     """gen, disc, disc_drs: train.state.NetState (disc_drs None in phase 1).
     source / source_drs: data.pipeline.DeviceDataSource (source_drs draws
-    uniformly). Returns fused_step(global_step, draws) -> {name: metric},
-    the metrics as tensors on the device (no host sync)."""
+    uniformly). g_aux_loss: the G-loss hook (module docstring) or None.
+    Returns fused_step(global_step, draws) -> {name: metric}, the metrics as
+    tensors on the device (no host sync)."""
+    if cfg.simultaneous_g and g_aux_loss is not None:
+        raise ValueError("simultaneous_g is incompatible with g_aux_loss hooks")
     fusions = [f for f in ("concat_d", "fuse_g", "simultaneous_g") if getattr(cfg, f)]
     if fusions:
         raise NotImplementedError(f"step fusions {fusions}: not in the port yet")
@@ -121,18 +138,21 @@ def make_fused_step(gen, disc, disc_drs, cfg: StepConfig, source, source_drs=Non
         return {"errD": loss.detach(), "D(x)": logits_real.detach().mean(),
                 "D(G(z))": logits_fake.detach().mean()}
 
-    def g_step(z, topk_rate, masks):
+    def g_step(z, topk_rate, masks, draws, i):
         fakes = gen.module(z, update_stats=True)
         logits_fake = disc.module(fakes, update_stats=True, **masks)[0]
         if cfg.topk:
             loss = L.masked_gen_loss(cfg.loss_type, *L.topk_filter(logits_fake, topk_rate))
         else:
             loss = L.g_loss(cfg.loss_type, logits_fake)
+        aux_metrics = {}
+        if g_aux_loss is not None:
+            loss = loss + g_aux_loss(gen.module, draws, i, aux_metrics)
         params = list(gen.module.parameters())
         for p, g in zip(params, torch.autograd.grad(loss, params)):
             p.grad = g
         gen.apply_update()
-        return {"errG": loss.detach()}
+        return {"errG": loss.detach(), **{k: v.detach() for k, v in aux_metrics.items()}}
 
     def fused_step(global_step, draws):
         for net in (gen, disc, disc_drs):
@@ -155,7 +175,8 @@ def make_fused_step(gen, disc, disc_drs, cfg: StepConfig, source, source_drs=Non
                                      masks)
                 metrics["errD_drs"] = drs_metrics["errD"]
             if i == cfg.n_dis - 1:
-                metrics.update(g_step(draws.normal("g_z", i, bs, nz, device), topk_rate, masks))
+                metrics.update(g_step(draws.normal("g_z", i, bs, nz, device), topk_rate, masks,
+                                      draws, i))
             metrics.update(d_metrics)
         if cfg.topk:
             metrics["topk_rate"] = topk_rate

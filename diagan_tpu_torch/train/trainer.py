@@ -86,10 +86,13 @@ class LogTrainer:
         seed=0,
         weight_eps=1e-6,
         device="cuda",
+        g_aux_loss=None,
     ):
         """bundle: models.registry.GANBundle (its modules are moved to
         `device`). dataset: data.arrays.ArrayDataset of uint8 images, or
-        data.gaussian.GaussianDataset's float32 points."""
+        data.gaussian.GaussianDataset's float32 points. g_aux_loss: an extra
+        G-loss term for the fused step (train/steps.py; Inclusive GAN's,
+        train/inclusive.py), or None."""
         self.device = resolve_device(device)
         self.output_path = Path(output_path)
         self.log_dir = Path(log_dir or output_path)
@@ -148,7 +151,7 @@ class LogTrainer:
             gold_step=self.gold_step, topk=topk, epoch_steps=self.epoch_steps,
             use_drs=self.train_drs)
         self.fused_step = make_fused_step(self.g, self.d, self.d_drs, self.cfg, self.source,
-                                          self.source_drs)
+                                          self.source_drs, g_aux_loss=g_aux_loss)
 
         # ---- logit recorder ---------------------------------------------
         n_snaps = (stop_save_logit_after - save_logit_after) // max(1, logit_save_steps) + 2

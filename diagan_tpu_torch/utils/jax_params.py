@@ -36,7 +36,14 @@ Layout conversions:
     lax.conv_transpose correlates), Conv_i / SNConv_i -> conv.{0,3,7,11,15,19},
     BatchNorm_i -> tconv.{1,4,7} / conv.{4,8,12,16,20}, and D's head Dense_0
     -> out_d with its rows from the (H, W, C) flatten to the (C, H, W) one;
-  - the toy MLPs: the Dense (or SNDense) layers in order -> fc0..fc3.
+  - the toy MLPs: the Dense (or SNDense) layers in order -> fc0..fc3;
+  - the CAE (models/cae.py): encode/Conv_i, BatchNorm_i -> convs.i, bns.i;
+    encode/Dense_0 -> fc_enc with its columns from the (H, W, C) flatten to
+    the (C, H, W) one; decode/Dense_0 -> fc_dec and decode/BatchNorm_0 ->
+    bn_dec, their rows (and the per-feature BatchNorm's parameters and
+    statistics) from the (H, W, C) reshape to the (C, H, W) one;
+    decode/ConvTranspose_j -> tconvs.j, the last one tconv_out, each kernel
+    flipped in both spatial axes; decode/BatchNorm_j (j >= 1) -> tbns.{j-1}.
 """
 from __future__ import annotations
 
@@ -461,3 +468,49 @@ def toy_generator_state_dict(variables):
 def toy_discriminator_state_dict(variables):
     """Flax ToyDiscriminator variables {"params"[, "spectral"]} -> the port's."""
     return _toy_state_dict(variables, "toy discriminator")
+
+
+def cae_state_dict(variables):
+    """Flax CAE variables {"params", "batch_stats"} (diagan_tpu/models/cae.py)
+    -> the port CAE's state_dict (see the module docstring)."""
+    enc = variables["params"]["encode"]
+    n = sum(1 for k in enc if _indexed(k, "Conv") is not None)
+    top = enc[f"Conv_{n - 1}"]["kernel"].shape[-1]
+
+    def chw(a):  # a (4 * 4 * top, ...) array's leading axis from (H, W, C) to (C, H, W)
+        return a.reshape((4, 4, top) + a.shape[1:]).transpose(
+            (2, 0, 1) + tuple(range(3, a.ndim + 2))).reshape(a.shape)
+
+    def rule(path, arr):
+        coll, part, head, rest = path[0], path[1], path[2], path[3:]
+        params = coll == "params"
+        if len(rest) != 1 or coll not in ("params", "batch_stats"):
+            return None
+        leaf = rest[0]
+        kind, _, i = head.rpartition("_")
+        i = int(i) if i.isdigit() else None
+        if kind == "BatchNorm" and i is not None and params == (leaf in ("scale", "bias")):
+            if part == "encode" and i < n:
+                return _bn_leaf(f"bns.{i}", leaf, arr)
+            if part == "decode" and i == 0:
+                return _bn_leaf("bn_dec", leaf, chw(arr))
+            if part == "decode" and i < n:
+                return _bn_leaf(f"tbns.{i - 1}", leaf, arr)
+            return None
+        if not params or leaf not in ("kernel", "bias") or i is None:
+            return None
+        suffix = "weight" if leaf == "kernel" else "bias"
+        if part == "encode" and kind == "Conv" and i < n:
+            return f"convs.{i}.{suffix}", _conv(arr) if leaf == "kernel" else arr
+        if kind == "Dense" and i == 0 and part == "encode":
+            return f"fc_enc.{suffix}", chw(arr).T if leaf == "kernel" else arr
+        if kind == "Dense" and i == 0 and part == "decode":
+            return f"fc_dec.{suffix}", chw(arr.T) if leaf == "kernel" else chw(arr)
+        if part == "decode" and kind == "ConvTranspose" and i < n:
+            name = "tconv_out" if i == n - 1 else f"tconvs.{i}"
+            return f"{name}.{suffix}", (arr[::-1, ::-1].transpose(2, 3, 0, 1)
+                                        if leaf == "kernel" else arr)
+        return None
+
+    tree = {"params": variables["params"], "batch_stats": variables["batch_stats"]}
+    return _with_batches_tracked(_convert(tree, rule, "CAE"))
