@@ -121,7 +121,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      launch; images/s, CAE images/s, RE sweep ms, s per refresh, ms per
      Inclusive step, peak memory and a profile of one Inclusive step; 12b
      the CAE's forwards and the Inclusive hook with its G gradients, card
-     against CPU.
+     against CPU;
+ 13. SSGAN and InfoMax-GAN through the Dia-GAN path, --simultaneous_g and
+     --bf16, at full width (ngf 256, ndf 128, nrkhs 1024; batch 64, n_dis 5)
+     on the earlier phases' data: per model cli.train_mimicry_phase1 for 20
+     steps with 50k sweeps at 10, 15 and 20, cli.train_mimicry_phase2 to 28
+     (ldr_conf_1.0_ratio_50, twin DRS D), load_eval_models and DRS at batch
+     256; SNGAN-32 phase 1 for 10 steps with --simultaneous_g, then with
+     --bf16; a Colored-MNIST phase 1 for 100 steps with --bf16; SSGAN-64 and
+     InfoMax-64 (ngf, ndf 1024) for 4 CelebA steps, no sweep; no port kernel
+     may launch; steps/s of each beside SNGAN's (and SNGAN's under concat_d
+     and fuse_g), sweep ms, DRS accepted/s, peak memory and profiles of one
+     SSGAN and one InfoMax step; 13b card against CPU with injected draws
+     and the CPU float64 run's ReLU sides: one fused step each of SSGAN-32
+     and InfoMax-32 (twin D), SSGAN-64 and InfoMax-64 at full width (batch
+     2, lr 0), SNGAN-32 under simultaneous_g, concat_d and fuse_g, and SNGAN-32
+     in bf16 (forwards and a step) against the fp32 CPU run.
 Each phase prints its start, in seconds since the script started.
 The last lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a card it exits 2 and prints no result.
@@ -581,20 +596,27 @@ def warp_paths(coef, win, s2):
 
 def adjoint_tol(name, want, plain, g, coef, s2):
     """The adjoints' tolerance against their plain versions (one tensor, or
-    a tuple for the two-phase planes): atomics add in a run-dependent order,
-    2e-5 + 1e-4 x |want|, and 2e-4 + 1e-4 x |want| on clipped, whose clamped
-    coordinates pile hundreds of terms onto the edge pixels. zoom_out's grid
-    spans ~2070 source pixels, so its edge and corner pixels collect up to
-    ~10^5 terms that largely cancel; a sum of K terms in another order moves
-    by up to ~K ulps of the sum of their magnitudes, so it also gets 16 ulps
-    (2^-20) of that sum: the plain adjoint of |g|."""
+    a tuple for the two-phase planes), and the sum of the magnitudes of each
+    pixel's terms (the plain adjoint of |g|). Both sides add with atomics in a
+    run-dependent order (the kernels' clamped pass and fallback, and the plain
+    version's indexing backward), so an edge pixel that collects K terms,
+    clipped's clamped coordinates or zoom_out's ~2070-pixel span, moves from
+    run to run by up to ~K ulps of the sum of their magnitudes, and where the
+    terms largely cancel that is far above 1e-4 x |want|. Every case gets
+    2e-5 (2e-4 on clipped) + 1e-4 x |want| + 16 ulps (2^-20) of that sum."""
     atol = 2e-4 if name == "clipped" else 2e-5
     single = isinstance(want, torch.Tensor)
-    tols = [atol + 1e-4 * w.abs() for w in ((want,) if single else want)]
-    if name == "zoom_out":
-        mags = plain(g.abs(), coef, s2)
-        tols = [t + 2.0**-20 * m for t, m in zip(tols, (mags,) if single else mags)]
-    return tols[0] if single else tols
+    mags = plain(g.abs(), coef, s2)
+    mags = (mags,) if single else mags
+    tols = [atol + 1e-4 * w.abs() + 2.0**-20 * m
+            for w, m in zip((want,) if single else want, mags)]
+    return (tols[0], mags[0]) if single else (tols, mags)
+
+
+def ulps_of_terms(diff, mags):
+    """The largest error in units of 2^-24 of the sum of |terms| (adjoint_tol
+    allows 16)."""
+    return (diff / (2.0**-24 * mags).clamp(min=1e-30)).max().item()
 
 
 def check_warp(dev, rng):
@@ -613,7 +635,7 @@ def check_warp(dev, rng):
     )
 
     win = ada_win()
-    err_g = err_s = 0.0
+    err_g = err_s = ulps = 0.0
     exact = True
     paths, same = {}, 0
     for P in ada_pads():
@@ -628,10 +650,11 @@ def check_warp(dev, rng):
             exact = exact and e == 0.0
             check(e <= 1e-6 * want.abs().max().item(), f"affine gather {name} s2={s2}: err {e}")
             diff = (dx2 - want_dx2).abs()
-            tol = adjoint_tol(name, want_dx2, affine_scatter_plain, g, coef, s2)
+            tol, mags = adjoint_tol(name, want_dx2, affine_scatter_plain, g, coef, s2)
             check(bool((diff <= tol).all()),
                   f"affine scatter {name} s2={s2}: err {diff.max().item()}")
             err_g, err_s = max(err_g, e), max(err_s, diff.max().item())
+            ulps = max(ulps, ulps_of_terms(diff, mags))
             used = warp_paths(coef, win, s2)
             if not used["clamped images"] and not used["adjoint fallback"]:
                 check(torch.equal(affine_scatter(g, coef, s2), dx2),
@@ -644,9 +667,9 @@ def check_warp(dev, rng):
     print(f"affine warp: S2 {[ada_s2(P) for P in ada_pads()]}, win {win}, "
           f"{len(WARP_CASES)} geometries + ADA draws at p=1: gather max abs err {err_g:.3e} "
           f"({'bit-exact' if exact else 'not bit-exact'}; tol 1e-6 x max|out|), adjoint "
-          f"{err_s:.3e} (adjoint_tol: 2e-5, clipped 2e-4, + 1e-4 x |want|; zoom_out + 2^-20 x "
-          f"the sum of |terms|); adjoint bit-identical over two launches on {same} cases "
-          f"with no clamped output and no fallback tile")
+          f"{err_s:.3e} (adjoint_tol: 2e-5, clipped 2e-4, + 1e-4 x |want| + 2^-20 x the sum "
+          f"of |terms|), at most {ulps:.2f} x 2^-24 of that sum; adjoint bit-identical over "
+          f"two launches on {same} cases with no clamped output and no fallback tile")
     # a buffer whose rows are not a multiple of 4 floats: the gather's 4-byte
     # copies and the adjoint's scalar stores
     s2 = ada_s2(ada_pads()[-1]) - 2
@@ -659,12 +682,14 @@ def check_warp(dev, rng):
         want, want_dx2 = affine_gather_plain(x2, coef, win), affine_scatter_plain(g, coef, s2)
         check(torch.equal(out, want), f"affine gather {name} s2={s2}: not bit-exact")
         diff = (dx2 - want_dx2).abs()
-        check(bool((diff <= adjoint_tol(name, want_dx2, None, g, coef, s2)).all()),
-              f"affine scatter {name} s2={s2}: err {diff.max().item()}")
+        tol, mags = adjoint_tol(name, want_dx2, affine_scatter_plain, g, coef, s2)
+        check(bool((diff <= tol).all()), f"affine scatter {name} s2={s2}: err {diff.max().item()}")
         err_s = max(err_s, diff.max().item())
+        ulps = max(ulps, ulps_of_terms(diff, mags))
     del x2, g
     print(f"  S2 {s2} (rows not a multiple of 4 floats), rot_scale and ADA draws: gather "
-          f"bit-exact, adjoint within adjoint_tol")
+          f"bit-exact, adjoint within adjoint_tol; all cases: adjoint at most {ulps:.2f} x "
+          f"2^-24 of the sum of |terms|")
     for k, by_case in paths.items():
         print(f"  {k}: " + ", ".join(f"{c} {v}" for c, v in by_case.items() if v))
         check(sum(by_case.values()) > 0, f"no call of check_warp took the path '{k}'")
@@ -770,7 +795,7 @@ def check_warp2(dev, rng):
     from diagan_tpu_torch.ops.ada_phase import _plane_offsets, _quarter_offsets
 
     win = ada_win()
-    err_g = err_s = 0.0
+    err_g = err_s = ulps = 0.0
     exact = True
     paths, same = {}, 0
     interleave = _quarter_offsets(16, 3, win, dev)  # the quarter grids as one win x win grid
@@ -793,12 +818,13 @@ def check_warp2(dev, rng):
             exact = exact and e == 0.0
             scale = max(b.abs().max().item() for b in want)
             check(e <= 1e-6 * scale, f"affine gather2 {name} s2={s2}: err {e}")
-            tols = adjoint_tol(name, want_dv, affine_scatter2_plain, g, coef, s2)
-            for got, w, tol in zip(dv, want_dv, tols):
+            tols, mags = adjoint_tol(name, want_dv, affine_scatter2_plain, g, coef, s2)
+            for got, w, tol, m in zip(dv, want_dv, tols, mags):
                 diff = (got - w).abs()
                 check(bool((diff <= tol).all()),
                       f"affine scatter2 {name} s2={s2}: err {diff.max().item()}")
                 err_s = max(err_s, diff.max().item())
+                ulps = max(ulps, ulps_of_terms(diff, m))
             err_g = max(err_g, e)
             del out, want, want_dv
             used = warp_paths(coef, win, s2)
@@ -817,7 +843,8 @@ def check_warp2(dev, rng):
           f"{len(WARP_CASES)} geometries + ADA draws at p=1 (S2 {runs[-1][1]}: rot_scale and "
           f"the draws): gather2 max abs err {err_g:.3e} "
           f"({'bit-exact' if exact else 'not bit-exact'}; tol 1e-6 x max|out|), adjoint "
-          f"{err_s:.3e} (adjoint_tol); on {same} cases with no clamped output and no fallback "
+          f"{err_s:.3e} (adjoint_tol), at most {ulps:.2f} x 2^-24 of the sum of |terms|; "
+          f"on {same} cases with no clamped output and no fallback "
           f"tile the adjoint gives the same bits on two launches and equals the interleaved "
           f"adjoint of the interleaved cotangent, de-interleaved, bit for bit")
     for k, by_case in paths.items():
@@ -1638,12 +1665,13 @@ def no_kernel_launched(path):
     check(not launched, f"{path} launched port kernels {launched}")
 
 
-def steps_per_s(tr, start, dev, n=10):
-    """Fused steps per second of a LogTrainer from global step `start` on: one
-    step to warm up, then n synchronised steps (host clock)."""
+def steps_per_s(tr, start, dev, n=10, fused=None):
+    """Fused steps per second of a LogTrainer (or of `fused`, a fused step
+    over its nets) from global step `start` on: one step to warm up, then n
+    synchronised steps (host clock)."""
     from diagan_tpu_torch.train.steps import step_draws
 
-    fused = tr.fused_step
+    fused = fused or tr.fused_step
     fused(start, step_draws(SEED, start, dev))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2866,6 +2894,377 @@ def cae_inclusive_card_vs_cpu(dev, smi):
           f"max|g| {max(g.abs().max().item() for g in g_cpu_grads):.3e} [{smi}]")
 
 
+
+SS_P1, SS_P2, SS_FLAG_STEPS, SS_MNIST_STEPS, SS_CELEBA_STEPS = 20, 28, 10, 100, 4  # depth cuts
+
+
+def sngan_twin_step(tr, dataset, dev, **fusions):
+    """A fused step of fresh full-width SNGAN nets (the registry's, from seed
+    0) on a trainer's data and step configuration, phase 1, with `fusions`:
+    SNGAN's step beside the trainer's own, in the same process."""
+    from diagan_tpu_torch.models.registry import get_gan_model
+    from diagan_tpu_torch.train.state import NetState
+    from diagan_tpu_torch.train.steps import make_fused_step
+
+    torch.manual_seed(SEED)
+    b = get_gan_model(dataset, device=dev)
+    cfg = tr.cfg._replace(model="sngan", use_drs=False, **fusions)
+    g = NetState(b.gen, b.opt_g, 1000, "linear", 1)
+    d = NetState(b.disc, b.opt_d, 1000, "linear", cfg.n_dis)
+    return make_fused_step(g, d, None, cfg, tr.source)
+
+
+def ssgan_infomax_path(dev, smi, work):
+    """13. SSGAN and InfoMax-GAN through the Dia-GAN path, --simultaneous_g
+    and --bf16, at full width (ngf 256, ndf 128, nrkhs 1024; 64 px: ngf, ndf
+    1024), batch 64, n_dis 5, on the earlier phases' data (`work` holds
+    phase 8's sngan/cifar10, phase 10's celeba/celeba and phase 11's
+    mnist/dataset/colour_mnist). Per model, cli.train_mimicry_phase1 for
+    SS_P1 steps with 50k sweeps at 10 and 20, cli.train_mimicry_phase2 to
+    SS_P2 (ldr_conf_1.0_ratio_50, the twin D), load_eval_models and DRS at
+    batch 256 from the phase-2 checkpoint; SNGAN-32 phase 1 with
+    --simultaneous_g, then with --bf16; a Colored-MNIST phase 1 with --bf16;
+    SSGAN-64 and InfoMax-64 phase 1 on CelebA with the sweep window past the
+    run's end. No port kernel may launch. Steps/s of each beside SNGAN's
+    (and SNGAN's under concat_d and fuse_g) in this process, ms per 50k
+    sweep, DRS accepted/s, peak memory and profiles of one SSGAN and one
+    InfoMax step."""
+    from diagan_tpu_torch.cli import (
+        train_mimicry_color_mnist_phase1,
+        train_mimicry_phase1,
+        train_mimicry_phase2,
+    )
+    from diagan_tpu_torch.eval.drs import DRS
+    from diagan_tpu_torch.eval.evaluate import load_eval_models, make_disc_fn, make_gen_fn
+    from diagan_tpu_torch.models.registry import get_gan_model
+    from diagan_tpu_torch.ops import _build
+    from diagan_tpu_torch.train.steps import step_draws
+
+    out = work / "ssgan_infomax"
+    cifar = work / "sngan" / "cifar10"
+    celeba = work / "celeba" / "celeba"
+    colour = work / "mnist" / "dataset" / "colour_mnist"
+    common = ["--work_dir", str(out), "--device", dev.type, "--seed", str(SEED),
+              "--batch_size", str(SNGAN_BS), "--n_dis", str(SNGAN_NDIS)]
+    cifar_args = common + ["-r", str(cifar)]
+    walls, sps = {}, {}
+
+    def drive(what, fn):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        walls[what] = time.perf_counter() - t0
+        no_kernel_launched(what)
+        return result
+
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    trainers = {}
+    for model in ("ssgan", "infomax_gan"):
+        args = cifar_args + ["--model", model]
+        tr1 = drive(f"{model} phase 1", lambda: train_mimicry_phase1.main(args + [
+            "--exp_name", f"{model}_p1", "--no_schedule_override", "--num_steps", str(SS_P1),
+            "--logit_save_steps", "5", "--save_logit_after", "10",
+            "--stop_save_logit_after", str(SS_P1)]))
+        check_logits(out / f"{model}_p1" / "logits_netD_eval.pkl", [10, 15, 20], SNGAN_N)
+        aux = ("errD", "errG", "D(x)", "D(G(z))")
+        print(f"train_mimicry_phase1 --model {model} ({SS_P1} steps, 3 sweeps of {SNGAN_N}): "
+              f"{walls[f'{model} phase 1']:.2f} s, metrics {finite_metrics(tr1, aux)}; no port "
+              f"kernel launched")
+        tr2 = drive(f"{model} phase 2", lambda: train_mimicry_phase2.main(args + [
+            "--exp_name", f"{model}_p2", "--baseline_exp_name", f"{model}_p1", "--p1_step",
+            str(SS_P1), "--num_steps", str(SS_P2), "--resample_score", EVAL_SCORE]))
+        check(tr2.global_step == SS_P2 and tr2.d_drs.count == tr2.d.count == SS_P2 * SNGAN_NDIS,
+              f"{model} phase 2 ended at step {tr2.global_step}, D updates {tr2.d.count}")
+        print(f"train_mimicry_phase2 --model {model} ({SS_P2 - SS_P1} steps, {EVAL_SCORE}, twin "
+              f"DRS D): {walls[f'{model} phase 2']:.2f} s, metrics "
+              f"{finite_metrics(tr2, ('errD', 'errG', 'errD_drs'))}; no port kernel launched")
+
+        def drs_run():
+            gen, disc = load_eval_models(get_gan_model("cifar10", model=model, drs=True,
+                                                       device=dev), out / f"{model}_p2", SS_P2,
+                                         use_drs=True)
+            drs = DRS(make_gen_fn(gen), make_disc_fn(disc), 128, batch_size=256, device=dev,
+                      generator=torch.Generator(dev).manual_seed(SEED + 3))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            images = drs.generate_images(4096)
+            return drs, images, time.perf_counter() - t0
+        drs, accepted, t_drs = drive(f"{model} DRS", drs_run)
+        acc = drs.accepted / drs.proposed
+        check(accepted.shape == (4096, 32, 32, 3) and np.isfinite(accepted).all()
+              and 0.0 < acc < 1.0, f"{model} DRS output, acceptance {acc}")
+        sps[f"{model} phase 1"] = steps_per_s(tr1, SS_P2 + 1, dev)
+        sps[f"{model} phase 2"] = steps_per_s(tr2, SS_P2 + 1, dev)
+        sweep = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr1.recorder.sweep(tr1.d.module, tr1.source)
+            torch.cuda.synchronize()
+            sweep.append((time.perf_counter() - t0) * 1e3)
+        print(f"{model}: DRS batch 256 4096 accepted of {drs.proposed} (acceptance {acc:.4f}) "
+              f"in {t_drs:.2f} s = {4096 / t_drs:.2f} accepted/s; logit sweep of {SNGAN_N} at "
+              f"batch 256 {sweep[0]:.2f} / {sweep[1]:.2f} ms; no port kernel launched [{smi}]")
+        trainers[model] = tr1
+        del tr2, drs
+
+    tr_ss = trainers["ssgan"]
+    for name, fusions in (("sngan", {}), ("sngan concat_d", {"concat_d": True}),
+                          ("sngan fuse_g", {"fuse_g": True})):
+        sps[name] = steps_per_s(None, SS_P2 + 1, dev,
+                                fused=sngan_twin_step(tr_ss, "cifar10", dev, **fusions))
+    for flag in ("--simultaneous_g", "--bf16"):
+        tr = drive(f"sngan {flag}", lambda: train_mimicry_phase1.main(cifar_args + [
+            "--exp_name", f"sngan{flag.replace('-', '_')}", "--no_schedule_override",
+            "--num_steps", str(SS_FLAG_STEPS), "--no_save_logits", flag]))
+        check(tr.cfg.simultaneous_g == (flag == "--simultaneous_g") and tr.g.count ==
+              SS_FLAG_STEPS and tr.d.count == SS_FLAG_STEPS * SNGAN_NDIS, f"{flag} run {tr.cfg}")
+        check((tr.g.module.l1.dtype == torch.bfloat16) == (flag == "--bf16"), f"{flag} dtype")
+        print(f"train_mimicry_phase1 SNGAN-32 {flag} ({SS_FLAG_STEPS} steps): "
+              f"{walls[f'sngan {flag}']:.2f} s, metrics "
+              f"{finite_metrics(tr, ('errD', 'errG', 'D(x)', 'D(G(z))'))}; no port kernel "
+              f"launched")
+        sps[f"sngan {flag}"] = steps_per_s(tr, SS_FLAG_STEPS, dev)
+        del tr
+    print("SNGAN-family steps/s at 32 px, batch 64, n_dis 5 (host clock, 10 synchronised "
+          f"steps, fp32 unless bf16): {({k: round(v, 3) for k, v in sps.items()})} [{smi}]")
+
+    tr = drive("colour phase 1 --bf16", lambda: train_mimicry_color_mnist_phase1.main([
+        "--work_dir", str(out), "--device", dev.type, "--seed", str(SEED), "-r", str(colour),
+        "--exp_name", "colour_bf16", "--bf16", "--num_steps", str(SS_MNIST_STEPS),
+        "--logit_save_steps", "100"]))
+    check(tr.g.module.fc.dtype == torch.bfloat16, "colour --bf16 dtype")
+    check_logits(out / "colour_bf16" / "logits_netD_train.pkl", [100], MNIST_N)
+    print(f"train_mimicry_color_mnist_phase1 --bf16 ({SS_MNIST_STEPS} steps, a train-mode sweep "
+          f"of {MNIST_N} at 100): {walls['colour phase 1 --bf16']:.2f} s, metrics "
+          f"{finite_metrics(tr, ('errD', 'errG'))}; {steps_per_s(tr, 101, dev):.3f} steps/s; "
+          f"no port kernel launched [{smi}]")
+    del tr
+
+    sps64 = {}
+    for model in ("ssgan", "infomax_gan"):
+        tr = drive(f"celeba {model}", lambda: train_mimicry_phase1.main(common + [
+            "-d", "celeba", "-r", str(celeba), "--model", model, "--exp_name",
+            f"celeba_{model}", "--no_schedule_override", "--num_steps", str(SS_CELEBA_STEPS),
+            "--logit_save_steps", "100", "--save_logit_after", "100",
+            "--stop_save_logit_after", "200"]))
+        check(tr.g.count == SS_CELEBA_STEPS and not tr.recorder.count, f"celeba {model} run")
+        print(f"train_mimicry_phase1 -d celeba --model {model} ({SS_CELEBA_STEPS} steps, no "
+              f"sweep): {walls[f'celeba {model}']:.2f} s, metrics "
+              f"{finite_metrics(tr, ('errD', 'errG', 'D(x)', 'D(G(z))'))}; no port kernel "
+              f"launched")
+        sps64[model] = steps_per_s(tr, SS_CELEBA_STEPS, dev, n=5)
+        if model == "ssgan":
+            sps64["sngan"] = steps_per_s(None, SS_CELEBA_STEPS, dev, n=5,
+                                         fused=sngan_twin_step(tr, "celeba", dev))
+        del tr
+    print("SNGAN-family steps/s at 64 px (ngf, ndf 1024), batch 64, n_dis 5, fp32 (host clock, "
+          f"5 synchronised steps): {({k: round(v, 3) for k, v in sps64.items()})} [{smi}]")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 13 wall s by run {({k: round(v, 2) for k, v in walls.items()})}; no port "
+          f"kernel launched in any; peak device memory {(peak - held) / 2**30:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB that earlier phases still held [{smi}]")
+    for model, tr in trainers.items():
+        profile(lambda: tr.fused_step(SS_P2 + 20, step_draws(SEED, SS_P2 + 20, dev)),
+                f"one {model} phase-1 step (32 px, batch {SNGAN_BS}, n_dis {SNGAN_NDIS})", smi,
+                ())
+
+
+class TypedSource:
+    """A DeviceDataSource whose batches come in `dtype` (float64 runs)."""
+
+    def __init__(self, source, dtype):
+        self.source, self.dtype, self.device = source, dtype, source.device
+
+    def gather(self, idx):
+        return self.source.gather(idx).to(self.dtype)
+
+
+class FixedDraws:
+    """A fused step's draws from a dict {kind: [per-iteration tensors]}."""
+
+    def __init__(self, draws, dtype):
+        self.draws, self.dtype = draws, dtype
+
+    def indices(self, kind, i, source, n):
+        return self.draws[kind][i].to(source.device)
+
+    def normal(self, kind, i, n, nz, device):
+        return self.draws[kind][i].to(device, self.dtype)
+
+
+def fused_step_grads(mods, cfg, ds, draws, d, dtype, lr):
+    """(metrics, {net: [per update [grads]]}) of one fused step of copies of
+    the CPU modules `mods` (G, D, D_drs) on device d; dtype float64 moves
+    them and the data to float64 (bf16 modules keep their compute dtype)."""
+    import copy
+
+    from diagan_tpu_torch.data.pipeline import DeviceDataSource
+    from diagan_tpu_torch.models.registry import OptSpec
+    from diagan_tpu_torch.train.state import NetState
+    from diagan_tpu_torch.train.steps import make_fused_step
+
+    spec, grads = OptSpec(lr, (0.0, 0.9)), {}
+    nets = [NetState(copy.deepcopy(m).to(d, dtype), spec, 100, "linear", ups)
+            for m, ups in zip(mods, (1, cfg.n_dis, cfg.n_dis))]
+    for name, net in zip(("G", "D", "D_drs"), nets):
+        named = list(net.module.named_parameters())
+        net.optim.register_step_pre_hook(
+            lambda opt, args, kwargs, name=name, named=named: grads.setdefault(name, []).append(
+                {k: p.grad.detach().cpu().double() for k, p in named}))
+    n = len(ds)
+    source = TypedSource(DeviceDataSource(ds, weights=np.linspace(0.1, 1.0, n), device=d), dtype)
+    fused = make_fused_step(*nets, cfg, source, TypedSource(DeviceDataSource(ds, device=d), dtype))
+    return {k: float(v) for k, v in fused(5, FixedDraws(draws, dtype)).items()}, grads
+
+
+def worst_grad(got, want):
+    """(max over updates and tensors of |got - want| / max(1, max|want|), where)."""
+    errs = {f"{name}[{u}].{k}": max_err(g[k], w[k]) / max(1.0, w[k].abs().max().item())
+            for name in want for u, (g, w) in enumerate(zip(got[name], want[name])) for k in w}
+    k = max(errs, key=errs.get)
+    return errs[k], k
+
+
+def aux_step_card_vs_cpu(dev, smi, model, size, width, bs, lr, label, **fusions):
+    """One fused phase-2 step (twin D, n_dis 2, hinge) of `model` at `size`
+    px, width `width` (ngf = ndf; InfoMax's nrkhs 1024), card against CPU
+    from the same weights and injected draws, every ReLU taking the side of
+    the CPU float64 run (ActSides): the metrics and every update's gradients
+    in fp32 within 1e-3 x max(1, max|.|). Returns the errors."""
+    from diagan_tpu_torch.data.arrays import ArrayDataset
+    from diagan_tpu_torch.data.synthetic import synthetic_natural
+    from diagan_tpu_torch.models import registry
+    from diagan_tpu_torch.train.steps import StepConfig
+
+    n_dis, n = 2, 64
+    gens, discs = ((registry._GEN_32, registry._DISC_32) if size == 32
+                   else (registry._GEN_64, registry._DISC_64))
+    torch.manual_seed(SEED)
+    mods = [gens[model](ngf=width, device="cpu"), discs[model](ndf=width, device="cpu"),
+            discs[model](ndf=width, device="cpu")]
+    ds = ArrayDataset.from_images(synthetic_natural(n, size, seed=13)[0])
+    rng = np.random.default_rng(SEED)
+
+    def normal(m):
+        return torch.from_numpy(rng.standard_normal((m, 128)).astype(np.float32))
+    draws = {k: [torch.from_numpy(rng.integers(0, n, bs)) for _ in range(n_dis)]
+             for k in ("real", "drs")}
+    draws.update({k: [normal(bs) for _ in range(n_dis)] for k in ("z", "drs_z", "g_z")})
+    draws["z_all"] = [normal(2 * n_dis * bs)]
+    cfg = StepConfig(n_dis=n_dis, batch_size=bs, nz=128, loss_type="hinge", drs_loss_type="ns",
+                     model=model, gold=False, gold_step=0, topk=False, epoch_steps=n // bs,
+                     use_drs=True, **fusions)
+    cpu = torch.device("cpu")
+    sides = ActSides()
+    with sides.record():
+        fused_step_grads(mods, cfg, ds, draws, cpu, torch.float64, lr)
+    runs = {}
+    for name, d in (("CPU", cpu), ("card", dev)):
+        with sides.apply():
+            runs[name] = fused_step_grads(mods, cfg, ds, draws, d, torch.float32, lr)
+        check(sides.used == len(sides.sides), f"{label}: ReLU sides out of step on the {name}")
+    (m_cpu, g_cpu), (m_card, g_card) = runs["CPU"], runs["card"]
+    m_err = max(abs(m_card[k] - m_cpu[k]) / max(1.0, abs(m_cpu[k])) for k in m_cpu)
+    check(m_cpu.keys() == m_card.keys() and m_err <= 1e-3, f"{label}: metrics {m_cpu} vs {m_card}")
+    g_err, at = worst_grad(g_card, g_cpu)
+    check(g_err <= 1e-3, f"{label}: gradients err {g_err} at {at} > 1e-3")
+    print(f"card vs CPU, {label} ({model}, {size} px, width {width}, batch {bs}, n_dis {n_dis}, "
+          f"twin D, lr {lr}, fusions {fusions or 'none'}, injected draws, the CPU float64 run's "
+          f"ReLU sides, fp32, TF32 off): losses rel err {m_err:.3e}; gradients {g_err:.3e} at "
+          f"{at} (tol 1e-3) [{smi}]")
+    return m_err, g_err
+
+
+BF16_TOL = 1e-1  # bf16 rounding after every conv / dense: CPU bf16 vs fp32 read 2e-2 - 4.5e-2
+
+
+def bf16_card_vs_cpu(dev, smi):
+    """SNGAN-32 (width 64) with the bf16 compute dtype on the card against the
+    fp32 CPU run from the same weights: G's images (eval mode) and D's
+    logits within BF16_TOL x max(1, max|out|), and one fused phase-2 step at
+    lr 0 (twin D, batch 16, n_dis 2, injected draws): metrics and gradients
+    within BF16_TOL x max(1, max|.|); the CPU's own bf16 run's distance from
+    its fp32 one is printed beside each as the yardstick."""
+    from diagan_tpu_torch.data.arrays import ArrayDataset
+    from diagan_tpu_torch.data.synthetic import synthetic_natural
+    from diagan_tpu_torch.models import sngan
+    from diagan_tpu_torch.train.steps import StepConfig
+
+    bs, n_dis, n, width = 16, 2, 64, 64
+    torch.manual_seed(SEED)
+
+    def nets(dtype):
+        return [sngan.SNGANGenerator32(ngf=width, device="cpu", dtype=dtype),
+                sngan.SNGANDiscriminator32(ndf=width, device="cpu", dtype=dtype),
+                sngan.SNGANDiscriminator32(ndf=width, device="cpu", dtype=dtype)]
+    fp32 = nets(torch.float32)
+    bf16 = nets(torch.bfloat16)
+    for m, m0 in zip(bf16, fp32):
+        m.load_state_dict(m0.state_dict())
+    ds = ArrayDataset.from_images(synthetic_natural(n, 32, seed=13)[0])
+    rng = np.random.default_rng(SEED)
+    draws = {k: [torch.from_numpy(rng.integers(0, n, bs)) for _ in range(n_dis)]
+             for k in ("real", "drs")}
+    draws.update({k: [torch.from_numpy(rng.standard_normal((bs, 128)).astype(np.float32))
+                      for _ in range(n_dis)] for k in ("z", "drs_z", "g_z")})
+    z = draws["z"][0]
+    x = torch.tanh(torch.from_numpy(rng.standard_normal((bs, 32, 32, 3)).astype(np.float32)))
+
+    def forward(mods, d):
+        g, disc = (m.to(d) for m in mods[:2])
+        with torch.no_grad():
+            out = g.eval()(z.to(d)).float().cpu(), disc(x.to(d))[0].float().cpu()
+        mods[0].cpu(), mods[1].cpu()
+        return out
+
+    def rel(got, want):
+        return (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+    want = forward(fp32, torch.device("cpu"))
+    card, cpu16 = forward(bf16, dev), forward(bf16, torch.device("cpu"))
+    fwd = [rel(c, w) for c, w in zip(card, want)]
+    yard = [rel(c, w) for c, w in zip(cpu16, want)]
+    check(max(fwd) <= BF16_TOL, f"bf16 forwards card vs CPU fp32 {fwd}")
+    for m in fp32 + bf16:
+        m.train()
+    cfg = StepConfig(n_dis=n_dis, batch_size=bs, nz=128, loss_type="hinge", drs_loss_type="ns",
+                     model="sngan", gold=False, gold_step=0, topk=False, epoch_steps=n // bs,
+                     use_drs=True)
+    cpu = torch.device("cpu")
+    m32, g32 = fused_step_grads(fp32, cfg, ds, draws, cpu, torch.float32, 0.0)
+    m_card, g_card = fused_step_grads(bf16, cfg, ds, draws, dev, torch.float32, 0.0)
+    m_cpu16, g_cpu16 = fused_step_grads(bf16, cfg, ds, draws, cpu, torch.float32, 0.0)
+    m_err = max(abs(m_card[k] - m32[k]) / max(1.0, abs(m32[k])) for k in m32)
+    m_yard = max(abs(m_cpu16[k] - m32[k]) / max(1.0, abs(m32[k])) for k in m32)
+    (g_err, at), (g_yard, _) = worst_grad(g_card, g32), worst_grad(g_cpu16, g32)
+    check(m_err <= BF16_TOL and g_err <= BF16_TOL,
+          f"bf16 step card vs CPU fp32: metrics {m_err}, gradients {g_err} at {at}")
+    print(f"card bf16 vs CPU fp32, SNGAN-32 width {width} (tol {BF16_TOL} x max(1, max|.|); "
+          f"the CPU's bf16 run's distance in parentheses): G images (eval) {fwd[0]:.3e} "
+          f"({yard[0]:.3e}), D logits {fwd[1]:.3e} ({yard[1]:.3e}); one phase-2 step at lr 0: "
+          f"losses {m_err:.3e} ({m_yard:.3e}), gradients {g_err:.3e} at {at} ({g_yard:.3e}) "
+          f"[{smi}]")
+
+
+def ssgan_infomax_card_vs_cpu(dev, smi):
+    """13b. The SNGAN family's new step paths, card against CPU
+    (aux_step_card_vs_cpu): SSGAN-32 and InfoMax-32 (width 64, batch 16, lr
+    2e-4); SSGAN-64 and InfoMax-64 at full width (1024) with batch 2 and lr
+    0 (an Adam step moves a weight by ~lr whatever its gradient's size,
+    PERF.md section 6); SNGAN-32 under simultaneous_g, concat_d and fuse_g;
+    then bf16 (bf16_card_vs_cpu)."""
+    for model in ("ssgan", "infomax_gan"):
+        aux_step_card_vs_cpu(dev, smi, model, 32, 64, 16, 2e-4, f"one {model}-32 step")
+    for model in ("ssgan", "infomax_gan"):
+        aux_step_card_vs_cpu(dev, smi, model, 64, 1024, 2, 0.0, f"one {model}-64 step")
+    for fusion in ("simultaneous_g", "concat_d", "fuse_g"):
+        aux_step_card_vs_cpu(dev, smi, "sngan", 32, 64, 16, 2e-4, f"one SNGAN-32 {fusion} step",
+                             **{fusion: True})
+    bf16_card_vs_cpu(dev, smi)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -3206,6 +3605,13 @@ def main(argv=None):
     cae_inclusive_path(dev, smi, work / "mnist")
     phase("12b. the CAE and the Inclusive hook, card against CPU")
     cae_inclusive_card_vs_cpu(dev, smi)
+
+    # 13. SSGAN, InfoMax-GAN, --simultaneous_g and --bf16 on the earlier
+    # phases' data, no port kernel
+    phase("13. SSGAN and InfoMax-GAN through the Dia-GAN path; --simultaneous_g, --bf16")
+    ssgan_infomax_path(dev, smi, work)
+    phase("13b. SSGAN, InfoMax, the step fusions and bf16, card against CPU")
+    ssgan_infomax_card_vs_cpu(dev, smi)
 
     shutil.rmtree(work, ignore_errors=True)
     phase("done")

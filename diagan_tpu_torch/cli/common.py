@@ -4,8 +4,9 @@ diagan_tpu/cli/common.py).
 Flag names and defaults as the JAX package's scripts (the reference's
 --gpu and --download_dataset are accepted and ignored), plus --device
 (default cuda; without a card and without --device cpu the scripts raise).
-The JAX package's --bf16, --data_parallel and --simultaneous_g are accepted
-and raise when set: they are not in the port yet.
+--bf16 and --simultaneous_g do what the JAX package's do (the scripts pass
+them on, each as its JAX counterpart does); --data_parallel is accepted and
+raises when set: it is not in the port yet.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from pathlib import Path
 
 import numpy as np
 
-NOT_PORTED = ("bf16", "data_parallel", "simultaneous_g")
+NOT_PORTED = ("data_parallel",)
 
 
 def add_common_train_flags(parser: argparse.ArgumentParser):
@@ -41,6 +42,11 @@ def check_ported(args):
     if unported:
         raise NotImplementedError(f"{', '.join(unported)}: not in the port yet "
                                   "(see ROADMAP.md, Queue A)")
+
+
+def step_fusions_from_args(args):
+    """LogTrainer's step_fusions from the flags: --simultaneous_g."""
+    return {"simultaneous_g": getattr(args, "simultaneous_g", False)}
 
 
 def load_phase1_scores(baseline_save_path, p1_step, resample_score, window=5000,

@@ -12,7 +12,9 @@ phase{1,2,2_gold}.py.
 Flags and defaults as the JAX scripts' (n_dis 1, ns loss in phase 1, 20k
 steps, no decay, vis every 100, checkpoints every 1000), with their
 per-script differences (_base_parser), plus --device (default cuda; no card
-and no --device cpu raises). The outputs are the JAX package's: checkpoints,
+and no --device cpu raises). --bf16 builds the DCGAN with the bf16 compute
+dtype, as the JAX scripts do; --simultaneous_g is accepted and changes
+nothing, as there (the JAX scripts pass no step_fusions). The outputs are the JAX package's: checkpoints,
 the train-mode `logits_netD_train.pkl` of phase 1 (none with PacGAN,
 --num_pack > 1), the score sorts and the first resampled batch of phase 2,
 and for Colored-MNIST the red/green counts of 1000 samples after each run
@@ -136,7 +138,8 @@ def phase1(dataset, root, exp, argv=None):
     args, device, save_path = _setup(parser, argv)
 
     bundle = get_gan_model(dataset_name=args.dataset, model=args.model, num_pack=args.num_pack,
-                           loss_type=args.loss_type, topk=args.topk == 1, device=device)
+                           loss_type=args.loss_type, topk=args.topk == 1, bf16=args.bf16,
+                           device=device)
     ds_train = _dataset(args)
     print(args)
 
@@ -184,7 +187,8 @@ def phase2(dataset, root, exp, argv=None):
     prefix = args.exp_name.split("/")[-1]
 
     bundle = get_gan_model(dataset_name=args.dataset, model=args.model, drs=True, gold=gold,
-                           loss_type=args.loss_type, num_pack=args.num_pack, device=device)
+                           loss_type=args.loss_type, num_pack=args.num_pack, bf16=args.bf16,
+                           device=device)
     netG_ckpt, netD_ckpt = _phase1_ckpts(args, baseline_save_path)
     netG_ckpt, netD_ckpt, netD_drs_ckpt = resolve_phase2_resume(args, save_path, netG_ckpt,
                                                                 netD_ckpt, netD_ckpt)
@@ -257,7 +261,7 @@ def phase2_gold(dataset, root, exp, argv=None):
 
     bundle = get_gan_model(dataset_name=args.dataset, model=args.model,
                            loss_type=args.loss_type, gold=True, num_pack=args.num_pack,
-                           device=device)
+                           bf16=args.bf16, device=device)
     netG_ckpt, netD_ckpt = _phase1_ckpts(args, baseline_save_path)
     netG_ckpt, netD_ckpt, _ = resolve_phase2_resume(args, save_path, netG_ckpt, netD_ckpt)
     ds_train = _dataset(args)

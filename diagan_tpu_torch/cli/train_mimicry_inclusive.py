@@ -7,8 +7,9 @@ num_data // batch_size * 20 steps; train/inclusive.py).
         -r ./dataset/colour_mnist --exp_name colour_inclusive --num_steps 20000
 
 The argparse surface of the JAX package's train_mimicry_inclusive.py, plus
---device (default cuda; no card and no --device cpu raises); its --bf16,
---data_parallel and --simultaneous_g raise (cli/common.py). The model is
+--device (default cuda; no card and no --device cpu raises). --bf16 and
+--simultaneous_g are accepted and change nothing, as in the root script,
+which passes neither on; --data_parallel raises (cli/common.py). The model is
 the MNIST DCGAN whatever --model says, with train-mode logits recorded as
 the phase-1 scripts do (not with PacGAN). The features come from the FID
 InceptionV3, with its weights from DIAGAN_TPU_INCEPTION_WEIGHTS or its

@@ -19,7 +19,12 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-from diagan_tpu_torch.cli.common import add_common_train_flags, check_ported, latest_ckpt_step
+from diagan_tpu_torch.cli.common import (
+    add_common_train_flags,
+    check_ported,
+    latest_ckpt_step,
+    step_fusions_from_args,
+)
 from diagan_tpu_torch.data.predefined import get_predefined_dataset
 from diagan_tpu_torch.device import resolve_device
 from diagan_tpu_torch.models.registry import get_gan_model
@@ -65,7 +70,7 @@ def main(argv=None):
 
     bundle = get_gan_model(dataset_name=args.dataset, model=args.model,
                            loss_type=args.loss_type, topk=args.topk, num_pack=args.num_pack,
-                           device=device)
+                           bf16=args.bf16, device=device)
     ds_train = get_predefined_dataset(dataset_name=args.dataset, root=args.root)
 
     # dataset-conditional schedule overrides (reference :82-92);
@@ -114,6 +119,7 @@ def main(argv=None):
         stop_save_logit_after=args.stop_save_logit_after,
         seed=args.seed,
         device=device,
+        step_fusions=step_fusions_from_args(args),
     )
     print_num_params(bundle.gen, bundle.disc)
     return trainer.train()

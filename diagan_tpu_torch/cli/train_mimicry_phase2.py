@@ -24,6 +24,7 @@ from diagan_tpu_torch.cli.common import (
     load_phase1_scores,
     phase1_ckpt_paths,
     resolve_phase2_resume,
+    step_fusions_from_args,
 )
 from diagan_tpu_torch.data.predefined import get_predefined_dataset
 from diagan_tpu_torch.device import resolve_device
@@ -80,7 +81,7 @@ def main(argv=None):
 
     bundle = get_gan_model(dataset_name=args.dataset, model=args.model,
                            loss_type=args.loss_type, drs=True, topk=args.topk, gold=args.gold,
-                           device=device)
+                           bf16=args.bf16, device=device)
     ds_train = get_predefined_dataset(dataset_name=args.dataset, root=args.root)
 
     if not args.gold:
@@ -111,6 +112,7 @@ def main(argv=None):
         seed=args.seed,
         weight_eps=1e-6,  # reference get_dataloader eps (:21-23)
         device=device,
+        step_fusions=step_fusions_from_args(args),
     )
     print_num_params(bundle.gen, bundle.disc)
     return trainer.train()

@@ -23,6 +23,17 @@ Block layout and initialisation as torch-mimicry's SNGAN (and the JAX
 package's): nearest 2x upsample, 2x2 mean pool, global sum pool,
 Xavier-uniform weights with gain sqrt(2) on block convs and 1 on shortcuts
 and heads, zero biases.
+
+Compute dtype (`dtype`, the JAX package's mixed precision, its layers.py
+`dtype`): the convs and dense layers (SNConv2d, SNLinear, Conv2d,
+ConvTranspose2d, Linear) take one. torch.float32, the default, computes in
+the parameters' dtype, as a plain torch layer does (float64 too, after
+`.to(torch.float64)`). torch.bfloat16 casts where Flax's Conv and Dense with
+dtype=bfloat16 cast: the input, the weight (the spectral norm's W / sigma,
+computed in fp32) and the bias go to bf16 and the bias is added after the op,
+in bf16. Parameters stay fp32, and so do the power iteration and BatchNorm,
+which upcasts a bf16 input and returns fp32, as Flax's BatchNorm with
+dtype=float32 does.
 """
 from __future__ import annotations
 
@@ -48,6 +59,20 @@ def variance_scaling_(weight, scale=1.0, fan_in=None, generator=None):
     nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
+def upcast(x):
+    """A bf16 tensor in fp32; any other as it is (fp32, or float64 in the
+    tests' float64 runs)."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def in_dtype(op, x, weight, bias, dtype, *args):
+    """op(x, weight, bias, *args) at the compute dtype (module docstring)."""
+    if dtype == torch.float32:
+        return op(x, weight, bias, *args)
+    y = op(x.to(dtype), weight.to(dtype), None, *args)
+    return y if bias is None else y + bias.to(dtype).view(-1, *(1,) * (y.ndim - 2))
+
+
 def _l2n(x):
     return x * torch.rsqrt((x * x).sum() + SN_EPS)
 
@@ -68,7 +93,8 @@ class _SpectralNorm(nn.Module):
     """The weight, bias and power-iteration state shared by SNConv2d and
     SNLinear; subclasses apply `normalized_weight(update_stats)`."""
 
-    def _init_sn(self, shape, gain, bias, device):
+    def _init_sn(self, shape, gain, bias, device, dtype):
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(shape, device=device))
         nn.init.xavier_uniform_(self.weight, gain=gain)
         self.bias = nn.Parameter(torch.zeros(shape[0], device=device)) if bias else None
@@ -94,36 +120,73 @@ class _SpectralNorm(nn.Module):
 
 class SNConv2d(_SpectralNorm):
     def __init__(self, in_ch, out_ch, kernel_size=3, padding=None, bias=True, gain=1.0,
-                 device=None, stride=1):
+                 device=None, stride=1, dtype=torch.float32):
         super().__init__()
         self.padding = kernel_size // 2 if padding is None else padding  # "SAME" at stride 1
         self.stride = stride
-        self._init_sn((out_ch, in_ch, kernel_size, kernel_size), gain, bias, device)
+        self._init_sn((out_ch, in_ch, kernel_size, kernel_size), gain, bias, device, dtype)
 
     def forward(self, x, update_stats=False):
-        return F.conv2d(x, self.normalized_weight(update_stats), self.bias, stride=self.stride,
-                        padding=self.padding)
+        return in_dtype(F.conv2d, x, self.normalized_weight(update_stats), self.bias, self.dtype,
+                        self.stride, self.padding)
 
 
 class SNLinear(_SpectralNorm):
-    def __init__(self, in_features, out_features, bias=True, gain=1.0, device=None):
+    def __init__(self, in_features, out_features, bias=True, gain=1.0, device=None,
+                 dtype=torch.float32):
         super().__init__()
-        self._init_sn((out_features, in_features), gain, bias, device)
+        self._init_sn((out_features, in_features), gain, bias, device, dtype)
 
     def forward(self, x, update_stats=False):
-        return F.linear(x, self.normalized_weight(update_stats), self.bias)
+        return in_dtype(F.linear, x, self.normalized_weight(update_stats), self.bias, self.dtype)
 
 
-def conv2d(in_ch, out_ch, kernel_size, gain, device=None):
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d (zero padding mode) at a compute dtype (module docstring)."""
+
+    def __init__(self, *args, dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return in_dtype(F.conv2d, x, self.weight, self.bias, self.dtype, self.stride,
+                        self.padding, self.dilation, self.groups)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d at a compute dtype (module docstring)."""
+
+    def __init__(self, *args, dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return in_dtype(F.conv_transpose2d, x, self.weight, self.bias, self.dtype, self.stride,
+                        self.padding, self.output_padding, self.groups, self.dilation)
+
+
+class Linear(nn.Linear):
+    """nn.Linear at a compute dtype (module docstring)."""
+
+    def __init__(self, *args, dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return in_dtype(F.linear, x, self.weight, self.bias, self.dtype)
+
+
+def conv2d(in_ch, out_ch, kernel_size, gain, device=None, dtype=torch.float32):
     """A plain conv with "SAME" padding, Xavier-uniform weight and zero bias."""
-    conv = nn.Conv2d(in_ch, out_ch, kernel_size, padding=kernel_size // 2, device=device)
+    conv = Conv2d(in_ch, out_ch, kernel_size, padding=kernel_size // 2, device=device,
+                  dtype=dtype)
     nn.init.xavier_uniform_(conv.weight, gain=gain)
     nn.init.zeros_(conv.bias)
     return conv
 
 
-def linear(in_features, out_features, gain=1.0, device=None):
-    layer = nn.Linear(in_features, out_features, device=device)
+def linear(in_features, out_features, gain=1.0, device=None, dtype=torch.float32):
+    layer = Linear(in_features, out_features, device=device, dtype=dtype)
     nn.init.xavier_uniform_(layer.weight, gain=gain)
     nn.init.zeros_(layer.bias)
     return layer
@@ -143,6 +206,7 @@ class BatchNorm(nn.Module):
                                                                  device=device))
 
     def forward(self, x, update_stats=False):
+        x = upcast(x)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, BN_EPS)
@@ -161,14 +225,14 @@ class GBlock(nn.Module):
     when the block upsamples or changes width (torch-mimicry's b1, c1, b2, c2,
     c_sc)."""
 
-    def __init__(self, in_ch, out_ch, upsample=False, device=None):
+    def __init__(self, in_ch, out_ch, upsample=False, device=None, dtype=torch.float32):
         super().__init__()
         self.upsample = upsample
         self.b1 = BatchNorm(in_ch, device=device)
-        self.c1 = conv2d(in_ch, out_ch, 3, SQRT2, device)
+        self.c1 = conv2d(in_ch, out_ch, 3, SQRT2, device, dtype)
         self.b2 = BatchNorm(out_ch, device=device)
-        self.c2 = conv2d(out_ch, out_ch, 3, SQRT2, device)
-        self.c_sc = (conv2d(in_ch, out_ch, 1, 1.0, device)
+        self.c2 = conv2d(out_ch, out_ch, 3, SQRT2, device, dtype)
+        self.c_sc = (conv2d(in_ch, out_ch, 1, 1.0, device, dtype)
                      if in_ch != out_ch or upsample else None)
 
     def forward(self, x, update_stats=False):
@@ -187,12 +251,12 @@ class DBlock(nn.Module):
     """ReLU-SNconv3x3-ReLU-SNconv3x3-(pool), plus a 1x1 SNconv (+ pool)
     shortcut when the block downsamples or changes width."""
 
-    def __init__(self, in_ch, out_ch, downsample=False, device=None):
+    def __init__(self, in_ch, out_ch, downsample=False, device=None, dtype=torch.float32):
         super().__init__()
         self.downsample = downsample
-        self.c1 = SNConv2d(in_ch, out_ch, 3, gain=SQRT2, device=device)
-        self.c2 = SNConv2d(out_ch, out_ch, 3, gain=SQRT2, device=device)
-        self.c_sc = (SNConv2d(in_ch, out_ch, 1, gain=1.0, device=device)
+        self.c1 = SNConv2d(in_ch, out_ch, 3, gain=SQRT2, device=device, dtype=dtype)
+        self.c2 = SNConv2d(out_ch, out_ch, 3, gain=SQRT2, device=device, dtype=dtype)
+        self.c_sc = (SNConv2d(in_ch, out_ch, 1, gain=1.0, device=device, dtype=dtype)
                      if in_ch != out_ch or downsample else None)
 
     def forward(self, x, update_stats=False):
@@ -212,11 +276,11 @@ class DBlockOptimized(nn.Module):
     """The first D block: SNconv3x3-ReLU-SNconv3x3-pool, plus a pool + 1x1
     SNconv shortcut."""
 
-    def __init__(self, in_ch, out_ch, device=None):
+    def __init__(self, in_ch, out_ch, device=None, dtype=torch.float32):
         super().__init__()
-        self.c1 = SNConv2d(in_ch, out_ch, 3, gain=SQRT2, device=device)
-        self.c2 = SNConv2d(out_ch, out_ch, 3, gain=SQRT2, device=device)
-        self.c_sc = SNConv2d(in_ch, out_ch, 1, gain=1.0, device=device)
+        self.c1 = SNConv2d(in_ch, out_ch, 3, gain=SQRT2, device=device, dtype=dtype)
+        self.c2 = SNConv2d(out_ch, out_ch, 3, gain=SQRT2, device=device, dtype=dtype)
+        self.c_sc = SNConv2d(in_ch, out_ch, 1, gain=1.0, device=device, dtype=dtype)
 
     def forward(self, x, update_stats=False):
         h = self.c2(F.relu(self.c1(x, update_stats)), update_stats)

@@ -1,7 +1,9 @@
 """GAN losses: StyleGAN2's losses and regularisers (counterparts of the
 StyleGAN2 part of diagan_tpu/models/losses.py and of the penalties in
-diagan_tpu/train/stylegan2_trainer.py), and the SNGAN family's hinge, ns /
-minimax and wasserstein losses with GOLD's fake-term weights and top-k."""
+diagan_tpu/train/stylegan2_trainer.py), the SNGAN family's hinge, ns /
+minimax and wasserstein losses with GOLD's fake-term weights and top-k, and
+the auxiliary losses of SSGAN (4-way rotation) and InfoMax-GAN
+(local-global InfoNCE)."""
 from __future__ import annotations
 
 import numpy as np
@@ -103,3 +105,29 @@ def masked_gen_loss(loss_type, sorted_logits, mask):
     """The generator's loss over the top-k masked logits."""
     per = _gen_per_example(loss_type, sorted_logits)
     return (per * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+# ---- SSGAN's rotation self-supervision and InfoMax-GAN's InfoNCE
+# (counterparts of the last part of diagan_tpu/models/losses.py)
+
+def rotate_batch_4way(x):
+    """NHWC images (N, H, W, C) -> ([x, rot90 x, rot180 x, rot270 x] stacked
+    on the batch (4N), labels 0..3 each repeated N times). torch.rot90 over
+    dims (1, 2) turns as numpy's and jnp.rot90 over axes (1, 2) do."""
+    imgs = torch.cat([torch.rot90(x, k, dims=(1, 2)) for k in range(4)])
+    return imgs, torch.arange(4, device=x.device).repeat_interleave(x.shape[0])
+
+
+def ss_rotation_loss(rot_logits, rot_labels):
+    """4-way softmax cross-entropy, averaged."""
+    logp = F.log_softmax(rot_logits, dim=-1)
+    return -logp.gather(-1, rot_labels[:, None]).mean()
+
+
+def infonce_loss(local_feat, global_feat):
+    """Local-global InfoNCE: local_feat (N, M, D) projected local features at
+    M positions, global_feat (N, D). Each (sample, position) scores every
+    global vector, (N, M, N); the positive is the sample's own."""
+    scores = torch.einsum("nmd,kd->nmk", local_feat, global_feat)
+    logp = F.log_softmax(scores, dim=-1)
+    return -torch.diagonal(logp, dim1=0, dim2=2).mean()

@@ -35,7 +35,11 @@ The JAX package's semantics, not torch's:
     mode only. forward takes the six keep masks (bool, NCHW, the shapes
     `dropout_shapes` gives) so that a step can hand the same masks to every
     D forward of an iteration, as the JAX step's one dropout key does; with
-    none it draws fresh ones from torch's global generator.
+    none it draws fresh ones from torch's global generator;
+  - dtype=torch.bfloat16 (get_gan_model(..., bf16=True)) runs the convs,
+    transposed convs and G's fc in bf16 (models/layers.py), as the JAX
+    package's dtype does; the parameters, BatchNorm (and what follows it up
+    to the next conv), D's flatten and head, and G's images stay fp32.
 """
 from __future__ import annotations
 
@@ -43,7 +47,14 @@ import torch
 import torch.nn as nn
 
 from diagan_tpu_torch.device import resolve_device
-from diagan_tpu_torch.models.layers import BatchNorm, SNConv2d
+from diagan_tpu_torch.models.layers import (
+    BatchNorm,
+    Conv2d,
+    ConvTranspose2d,
+    Linear,
+    SNConv2d,
+    upcast,
+)
 
 INIT_STD = 0.02
 D_SPECS = ((16, 2), (32, 1), (64, 2), (128, 1), (256, 2), (512, 1))  # (width, stride)
@@ -64,22 +75,26 @@ def _bn(width, device):
 def _apply(layer, h, update_stats):
     if isinstance(layer, (BatchNorm, SNConv2d)):
         return layer(h, update_stats)
+    if isinstance(layer, nn.Tanh):  # images leave G in fp32 whatever the compute dtype
+        return layer(upcast(h))
     return layer(h)
 
 
 class MNISTDCGANGenerator(nn.Module):
-    def __init__(self, nz=100, nc=3, device="cuda"):
+    def __init__(self, nz=100, nc=3, device="cuda", dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
         self.nz = nz
-        self.fc = nn.Linear(nz, 384, device=device)
+        self.fc = Linear(nz, 384, device=device, dtype=dtype)
         _normal_(self.fc.weight)
         nn.init.zeros_(self.fc.bias)
         layers = []
         for cin, cout, stride, pad in ((384, 192, 1, 0), (192, 96, 2, 1), (96, 48, 2, 1)):
-            layers += [nn.ConvTranspose2d(cin, cout, 4, stride, pad, bias=False, device=device),
+            layers += [ConvTranspose2d(cin, cout, 4, stride, pad, bias=False, device=device,
+                                       dtype=dtype),
                        _bn(cout, device), nn.ReLU()]
-        layers += [nn.ConvTranspose2d(48, nc, 4, 2, 1, bias=False, device=device), nn.Tanh()]
+        layers += [ConvTranspose2d(48, nc, 4, 2, 1, bias=False, device=device, dtype=dtype),
+                   nn.Tanh()]
         self.tconv = nn.Sequential(*layers)
         for layer in self.tconv:
             if isinstance(layer, nn.ConvTranspose2d):
@@ -93,7 +108,7 @@ class MNISTDCGANGenerator(nn.Module):
 
 
 class MNISTDCGANDiscriminator(nn.Module):
-    def __init__(self, nc=3, num_pack=1, use_sn=False, device="cuda"):
+    def __init__(self, nc=3, num_pack=1, use_sn=False, device="cuda", dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
         self.num_pack = num_pack
@@ -101,9 +116,9 @@ class MNISTDCGANDiscriminator(nn.Module):
         for j, (width, stride) in enumerate(D_SPECS):
             if use_sn:
                 conv = SNConv2d(cin, width, 3, padding=1, bias=False, gain=1.0, device=device,
-                                stride=stride)
+                                stride=stride, dtype=dtype)
             else:
-                conv = nn.Conv2d(cin, width, 3, stride, 1, bias=False, device=device)
+                conv = Conv2d(cin, width, 3, stride, 1, bias=False, device=device, dtype=dtype)
                 _normal_(conv.weight)
             layers.append(conv)
             if j > 0:  # the first conv has no BatchNorm (reference mnist.py:163-166)
@@ -135,5 +150,5 @@ class MNISTDCGANDiscriminator(nn.Module):
             elif self.training:
                 keep = next(masks) if masks is not None else torch.rand_like(h) < 0.5
                 h = torch.where(keep, h / 0.5, torch.zeros((), dtype=h.dtype, device=h.device))
-        feat = h.flatten(1)
+        feat = upcast(h.flatten(1))
         return self.out_d(feat).squeeze(-1), {"features": feat}

@@ -1,7 +1,8 @@
 """Model factory: dataset name -> (G, D[, D_drs]) modules and optimizer specs
 (counterpart of diagan_tpu/models/registry.py).
 
-  cifar10 -> SNGAN-32, celeba -> SNGAN-64 (nz 128), Adam(2e-4, (0.0, 0.9));
+  cifar10 -> {sngan, ssgan, infomax_gan}-32, celeba -> the 64 px ones (nz
+    128), Adam(2e-4, (0.0, 0.9));
   color_mnist / mnist_fmnist -> the MNIST DCGAN (nc 3 / 1, nz 100, 32 px,
     num_pack and use_sn passed through), Adam(1e-4, (0.5, 0.9)), model
     "dcgan" whatever `model` says;
@@ -14,21 +15,24 @@ With drs=True a third discriminator (netD_drs) is built, which always
 trains with the ns loss whatever --loss_type says (reference
 predefined_models.py:180). GOLD and top-k are switches on the bundle that the
 trainer reads. The modules are built on `device`, from torch's global
-generator (seed it first: utils.set_seed).
+generator (seed it first: utils.set_seed). bf16=True builds the cifar10,
+celeba, color_mnist and mnist_fmnist models with the bf16 compute dtype
+(models/layers.py), as the JAX package does; the toy ignores it, as there.
 
 The ffhq bundle serves evaluation (eval.evaluate, the eval CLIs); StyleGAN2
-trains through cli/train_ffhq.py. Not in the port yet, and raising: the ssgan
-and infomax_gan models, and bf16.
+trains through cli/train_ffhq.py. Not in the port yet, and raising: bf16 for
+ffhq.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 
+import torch
 import torch.nn as nn
 
 from diagan_tpu_torch.device import resolve_device
-from diagan_tpu_torch.models import mnist_dcgan, sngan, stylegan2, toy
+from diagan_tpu_torch.models import infomax, mnist_dcgan, sngan, ssgan, stylegan2, toy
 
 
 @dataclasses.dataclass
@@ -56,10 +60,26 @@ class GANBundle:
     nc: int
 
 
-_GEN_32 = {"sngan": sngan.SNGANGenerator32}
-_DISC_32 = {"sngan": sngan.SNGANDiscriminator32}
-_GEN_64 = {"sngan": sngan.SNGANGenerator64}
-_DISC_64 = {"sngan": sngan.SNGANDiscriminator64}
+_GEN_32 = {
+    "sngan": sngan.SNGANGenerator32,
+    "ssgan": ssgan.SSGANGenerator32,
+    "infomax_gan": infomax.InfoMaxGANGenerator32,
+}
+_DISC_32 = {
+    "sngan": sngan.SNGANDiscriminator32,
+    "ssgan": ssgan.SSGANDiscriminator32,
+    "infomax_gan": infomax.InfoMaxGANDiscriminator32,
+}
+_GEN_64 = {
+    "sngan": sngan.SNGANGenerator64,
+    "ssgan": ssgan.SSGANGenerator64,
+    "infomax_gan": infomax.InfoMaxGANGenerator64,
+}
+_DISC_64 = {
+    "sngan": sngan.SNGANDiscriminator64,
+    "ssgan": ssgan.SSGANDiscriminator64,
+    "infomax_gan": infomax.InfoMaxGANDiscriminator64,
+}
 _STYLEGAN2_G = stylegan2.StyleGAN2Generator
 _STYLEGAN2_D = stylegan2.StyleGAN2Discriminator
 
@@ -71,20 +91,19 @@ def _not_ported(what):
 def get_gan_model(dataset_name, model="sngan", loss_type="hinge", gold=False, drs=False,
                   topk=False, num_pack=1, device="cuda", **kwargs) -> GANBundle:
     device = resolve_device(device)
-    if kwargs.get("bf16"):
-        raise _not_ported("bf16")
+    dtype = torch.bfloat16 if kwargs.get("bf16") else torch.float32
     if dataset_name in ("cifar10", "celeba"):
-        if model not in _GEN_32:
-            raise _not_ported(f"model {model!r}")
         gens, discs = (_GEN_32, _DISC_32) if dataset_name == "cifar10" else (_GEN_64, _DISC_64)
         size, nz, nc = (32 if dataset_name == "cifar10" else 64), 128, 3
-        make_gen, make_disc = gens[model], discs[model]
+        make_gen = functools.partial(gens[model], dtype=dtype)
+        make_disc = functools.partial(discs[model], dtype=dtype)
         opt = OptSpec(2e-4, (0.0, 0.9))
     elif dataset_name in ("color_mnist", "mnist_fmnist"):
         nc, nz, size, model = (3 if dataset_name == "color_mnist" else 1), 100, 32, "dcgan"
-        make_gen = functools.partial(mnist_dcgan.MNISTDCGANGenerator, nz=nz, nc=nc)
+        make_gen = functools.partial(mnist_dcgan.MNISTDCGANGenerator, nz=nz, nc=nc, dtype=dtype)
         make_disc = functools.partial(mnist_dcgan.MNISTDCGANDiscriminator, nc=nc,
-                                      num_pack=num_pack, use_sn=kwargs.get("use_sn", False))
+                                      num_pack=num_pack, use_sn=kwargs.get("use_sn", False),
+                                      dtype=dtype)
         opt = OptSpec(1e-4, (0.5, 0.9))
     elif dataset_name == "25gaussian":
         nz, size, nc, model = 2, 0, 2, "toy"
@@ -92,6 +111,8 @@ def get_gan_model(dataset_name, model="sngan", loss_type="hinge", gold=False, dr
         make_disc = functools.partial(toy.ToyDiscriminator, use_sn=kwargs.get("use_sn", False))
         opt = OptSpec(1e-4, (0.5, 0.999))
     elif dataset_name == "ffhq":
+        if kwargs.get("bf16"):
+            raise _not_ported("bf16 for ffhq")
         size, nz, nc, model = kwargs.get("size", 256), 512, 3, "stylegan"
         make_gen = functools.partial(_STYLEGAN2_G, size=size)
         make_disc = functools.partial(_STYLEGAN2_D, size=size)

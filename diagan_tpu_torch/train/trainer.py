@@ -87,12 +87,15 @@ class LogTrainer:
         weight_eps=1e-6,
         device="cuda",
         g_aux_loss=None,
+        step_fusions=None,
     ):
         """bundle: models.registry.GANBundle (its modules are moved to
         `device`). dataset: data.arrays.ArrayDataset of uint8 images, or
         data.gaussian.GaussianDataset's float32 points. g_aux_loss: an extra
         G-loss term for the fused step (train/steps.py; Inclusive GAN's,
-        train/inclusive.py), or None."""
+        train/inclusive.py), or None. step_fusions: {"concat_d", "fuse_g",
+        "simultaneous_g"} -> bool for the fused step (train/steps.py), all
+        off by default."""
         self.device = resolve_device(device)
         self.output_path = Path(output_path)
         self.log_dir = Path(log_dir or output_path)
@@ -149,7 +152,7 @@ class LogTrainer:
             n_dis=n_dis, batch_size=batch_size, nz=bundle.nz, loss_type=bundle.loss_type,
             drs_loss_type=bundle.drs_loss_type, model=bundle.model, gold=gold,
             gold_step=self.gold_step, topk=topk, epoch_steps=self.epoch_steps,
-            use_drs=self.train_drs)
+            use_drs=self.train_drs, **dict(step_fusions or {}))
         self.fused_step = make_fused_step(self.g, self.d, self.d_drs, self.cfg, self.source,
                                           self.source_drs, g_aux_loss=g_aux_loss)
 

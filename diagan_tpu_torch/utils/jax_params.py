@@ -21,7 +21,10 @@ Layout conversions:
     BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
     (num_batches_tracked 0); a spectral layer's `u` (1, out) -> `weight_u`
     (out,), and its stored sigma is dropped: every forward recomputes it from
-    (W, u) (models/layers.py);
+    (W, u) (models/layers.py); SSGAN's and InfoMax's discriminators nest
+    the SNGAN backbone under SNGANDiscriminator{32,64}_0 and their heads
+    under _SSHead_0 (-> l_y) and _InfoMaxHeads_0 (-> local_nn, global_nn.0,
+    global_nn.2), as diagan_tpu/utils/mimicry_import.py maps them;
   - InceptionV3 (eval/inception.py): the Flax auto-named ConvBN_k modules,
     sorted naturally (ConvBN_10 after ConvBN_2, as the JAX loader sorts
     them), go in order to the port's ConvBN modules, which carry
@@ -271,13 +274,58 @@ def _sngan_discriminator_rule(head_name):
     return rule
 
 
+def _sngan_head_name(backbone_params):
+    return f"l{2 + sum(1 for k in backbone_params if k.startswith('DBlock_'))}"
+
+
 def sngan_discriminator_state_dict(variables):
     """Flax SNGANDiscriminator{32,64} variables {"params", "spectral"} -> the
     port discriminator's state_dict (torch-mimicry's layout)."""
     params = variables["params"]
-    n_blocks = 1 + sum(1 for k in params if k.startswith("DBlock_"))
     tree = {"params": params, "spectral": variables["spectral"]}
-    return _convert(tree, _sngan_discriminator_rule(f"l{n_blocks + 1}"), "SNGAN discriminator")
+    return _convert(tree, _sngan_discriminator_rule(_sngan_head_name(params)),
+                    "SNGAN discriminator")
+
+
+def _headed_discriminator_state_dict(variables, heads, what):
+    """A Flax discriminator that wraps SNGANDiscriminator{32,64}_0 and adds
+    head modules -> the port's state_dict: the backbone's leaves by the SNGAN
+    rule, each head layer's by `heads` {(Flax head module, its SN layer): port
+    prefix}."""
+    params = variables["params"]
+    (backbone,) = [k for k in params if re.fullmatch(r"SNGANDiscriminator(32|64)_0", k)]
+    base = _sngan_discriminator_rule(_sngan_head_name(params[backbone]))
+
+    def rule(path, arr):
+        coll, head, rest = path[0], path[1], path[2:]
+        if head == backbone:
+            return base((coll, *rest), arr)
+        prefix = heads.get((head, rest[0])) if rest else None
+        if prefix is None:
+            return None
+        layer = "Conv_0" if rest[0].startswith("SNConv") else "Dense_0"
+        return _spectral_leaf(coll, rest[1:], layer, prefix, arr)
+
+    tree = {"params": params, "spectral": variables["spectral"]}
+    return _convert(tree, rule, what)
+
+
+def ssgan_discriminator_state_dict(variables):
+    """Flax SSGANDiscriminator{32,64} variables {"params", "spectral"} -> the
+    port's state_dict: the backbone (SNGANDiscriminator{32,64}_0) as SNGAN's,
+    _SSHead_0/SNDense_0 -> l_y."""
+    return _headed_discriminator_state_dict(
+        variables, {("_SSHead_0", "SNDense_0"): "l_y"}, "SSGAN discriminator")
+
+
+def infomax_discriminator_state_dict(variables):
+    """Flax InfoMaxGANDiscriminator{32,64} variables {"params", "spectral"} ->
+    the port's state_dict: the backbone as SNGAN's, _InfoMaxHeads_0's
+    SNConv_0 / SNDense_0 / SNDense_1 -> local_nn / global_nn.0 / global_nn.2."""
+    return _headed_discriminator_state_dict(
+        variables, {("_InfoMaxHeads_0", "SNConv_0"): "local_nn",
+                    ("_InfoMaxHeads_0", "SNDense_0"): "global_nn.0",
+                    ("_InfoMaxHeads_0", "SNDense_1"): "global_nn.2"}, "InfoMax discriminator")
 
 
 def _natural_key(path):
