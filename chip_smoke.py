@@ -136,7 +136,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      and the CPU float64 run's ReLU sides: one fused step each of SSGAN-32
      and InfoMax-32 (twin D), SSGAN-64 and InfoMax-64 at full width (batch
      2, lr 0), SNGAN-32 under simultaneous_g, concat_d and fuse_g, and SNGAN-32
-     in bf16 (forwards and a step) against the fp32 CPU run.
+     in bf16 (forwards and a step) against the fp32 CPU run;
+ 14. the FFHQ trainer's last flags and the checkpoint readers, on phase 6's
+     512 images at full width: 14a cli.train_ffhq --bf16 --remat
+     --stream_data --no_fuse --max_chunk 4 for 8 steps with logit sweeps,
+     cli.train_ffhq_phase2 --bf16 --stream_data for 4 steps from it (twin D,
+     weighted host stream), each launching every training kernel and A1-A3
+     and the fused act's kernels on bf16 tensors (no generic instance, no
+     two-phase warp), then phase 1's checkpoint in the reference's key layout
+     through read_stylegan2_ckpt and cli.generate; 14b the streamed logit
+     sweep against the resident one (bit for bit), one fp32 step with and
+     without remat (1e-6 of max(1, max|.|)) with their peak memory, ms per
+     step in fp32 and bf16, streamed and with remat; 14c one bf16 step
+     (forwards, D loss, R1, G, path) card against the fp32 CPU run; 14d the
+     bf16 instances A1-A3 and the fused act's kernels at the bf16 step's
+     shapes against their plain versions, timed against their bounds.
 Each phase prints its start, in seconds since the script started.
 The last lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a card it exits 2 and prints no result.
@@ -3265,6 +3279,538 @@ def ssgan_infomax_card_vs_cpu(dev, smi):
     bf16_card_vs_cpu(dev, smi)
 
 
+# --- 14. the FFHQ trainer's flags and the checkpoint readers ----------------
+FLAG_KERNELS = ("upfirdn2d", "upfirdn2d_backward", "fused_leaky_relu",
+                "fused_leaky_relu_backward", "fused_leaky_relu_db", *WARP)
+BF16_FIR = ("fir4x4", "fir4x4_up2", "fir4x4_down2")  # A1-A3: G and D blurs, the ToRGB skip
+BF16_FLR = ("fused_leaky_relu", "fused_leaky_relu_backward", "fused_leaky_relu_db")
+
+
+def to_reference(g_sd, d_sd):
+    """The port's StyleGAN2 state_dicts in the reference's (rosinality's)
+    key layout, as its `{iter:06d}.pt` holds them, with the fixed blur and
+    noise buffers it also saves; D's ResBlock skip convs have no bias there,
+    so theirs are dropped. The inverse of utils/jax_params.py's
+    reference_*_state_dict."""
+    g, d = {}, {}
+    for key, t in g_sd.items():
+        t = t.detach().cpu()
+        if key.startswith("mapping.layers."):
+            i, name = key[len("mapping.layers."):].split(".", 1)
+            g[f"style.{int(i) + 1}.{name}"] = t
+            continue
+        if key == "synthesis.input":
+            g["input.input"] = t
+            continue
+        layer, rest = key[len("synthesis.layers."):].split(".", 1)
+        if layer.startswith(("conv_up_", "conv_", "to_rgb_")):
+            j = int(math.log2(int(layer.rsplit("_", 1)[1]))) - 3
+            prefix = (f"to_rgbs.{j}" if layer.startswith("to_rgb_") else
+                      f"convs.{2 * j + (0 if layer.startswith('conv_up_') else 1)}")
+        else:
+            prefix = layer
+        rgb = prefix.startswith("to_rgb")
+        if rest == "conv.weight":
+            g[f"{prefix}.conv.weight"] = t[None]
+        elif rest == "noise.weight":
+            g[f"{prefix}.noise.weight"] = t.reshape(1)
+        elif rest == "bias":
+            g[f"{prefix}.bias" if rgb else f"{prefix}.activate.bias"] = (
+                t.reshape(1, 3, 1, 1) if rgb else t)
+        else:
+            g[f"{prefix}.{rest}"] = t
+    blur = torch.full((4, 4), 1 / 16)
+    n_res = int(math.log2(SIZE)) - 2
+    for j in range(n_res):
+        g[f"convs.{2 * j}.conv.blur.kernel"] = blur * 4
+        g[f"to_rgbs.{j}.upsample.kernel"] = blur * 4
+    for i in range(2 * n_res + 1):
+        res = 2 ** ((i + 5) // 2)
+        g[f"noises.noise_{i}"] = torch.randn(1, 1, res, res)
+    top = {"from_rgb.conv.weight": "convs.0.0.weight", "from_rgb.bias": "convs.0.1.bias",
+           "final_conv.conv.weight": "final_conv.0.weight", "final_conv.bias": "final_conv.1.bias",
+           "final_linear.weight": "final_linear.0.weight",
+           "final_linear.bias": "final_linear.0.bias", "out_linear.weight": "final_linear.1.weight",
+           "out_linear.bias": "final_linear.1.bias"}
+    inner = {"conv1.conv.weight": "conv1.0.weight", "conv1.bias": "conv1.1.bias",
+             "conv2.conv.weight": "conv2.1.weight", "conv2.bias": "conv2.2.bias",
+             "skip.conv.weight": "skip.1.weight", "skip.conv.bias": None}
+    for key, t in d_sd.items():
+        t = t.detach().cpu()
+        if key in top:
+            d[top[key]] = t
+            continue
+        _, b, rest = key.split(".", 2)
+        if inner[rest] is not None:
+            d[f"convs.{int(b) + 1}.{inner[rest]}"] = t
+        if rest == "conv2.conv.weight":
+            d[f"convs.{int(b) + 1}.conv2.0.kernel"] = blur
+            d[f"convs.{int(b) + 1}.skip.0.kernel"] = blur
+    return g, d
+
+
+def flags_path(dev, smi, work):
+    """14a. cli.train_ffhq --bf16 --remat --stream_data --no_fuse --max_chunk 4
+    for 8 steps with logit sweeps at 2, 4 and 6 on phase 6's 512 images,
+    then cli.train_ffhq_phase2 --bf16 --stream_data for 4 steps from that
+    checkpoint (ldr_conf_3.0_ratio_50, the twin D); each run launches every
+    training kernel (the generic kernel A instance and the two-phase warp
+    pair none), and A1-A3 and the fused act's three kernels on bf16 tensors.
+    Then the phase-1 checkpoint copied into the reference's key layout goes
+    through read_stylegan2_ckpt and cli.generate. Returns (the phase-1
+    trainer, {run: (launches, kernel A launches by instance, bf16 launches)})."""
+    import pickle
+
+    from diagan_tpu_torch.cli import generate, train_ffhq, train_ffhq_phase2
+    from diagan_tpu_torch.eval.evaluate import read_stylegan2_ckpt
+    from diagan_tpu_torch.models.stylegan2 import StyleGAN2Discriminator, StyleGAN2Generator
+    from diagan_tpu_torch.ops import _build
+
+    data = work / "train" / "data"
+    check((data / f"ffhq_{SIZE}.npy").is_file(), "phase 6's dataset is missing")
+    common = ["-d", "ffhq", "-r", str(data), "--size", str(SIZE), "--batch", "16",
+              "--augment", "--augment_p", "0.3", "--work_dir", str(work / "flags"),
+              "--seed", str(SEED), "--device", dev.type]
+    runs = {}
+
+    def drive(name, fn):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, bf16 = dict(_build.LAUNCHES), dict(_build.BF16_LAUNCHES)
+        fir = fir_launches(name)
+        check(all(launches[k] > 0 for k in FLAG_KERNELS) and
+              all(launches[k] == 0 for k in WARP2), f"{name} launches {launches}")
+        check(all(bf16.get(f"upfirdn2d/{i}", 0) > 0 for i in BF16_FIR) and
+              all(bf16.get(k, 0) > 0 for k in BF16_FLR), f"{name} bf16 launches {bf16}")
+        print(f"{name}: {wall:.2f} s [{smi}], launches {launches}; of them on bf16 tensors "
+              f"{bf16}")
+        runs[name] = (launches, fir, bf16)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    tr1 = drive("train_ffhq --bf16 --remat --stream_data --no_fuse --max_chunk 4 (8 steps)",
+                lambda: train_ffhq.main(common + [
+                    "--exp_name", "p1", "--iter", "8", "--logit_save_steps", "2",
+                    "--save_logit_after", "0", "--bf16", "--remat", "--stream_data",
+                    "--no_fuse", "--max_chunk", "4"]))
+    peak = torch.cuda.max_memory_allocated()
+    check(tr1.stream and tr1.images is None and tr1.gen.synthesis.remat and tr1.disc.remat
+          and tr1.disc.dtype == torch.bfloat16, "phase 1 did not take the flags")
+    print(f"phase 1 (bf16, remat, streamed) metrics: "
+          f"{finite_metrics(tr1, ('d', 'g', 'r1', 'path'))}; peak device memory "
+          f"{peak / 2**30:.2f} GiB [{smi}]")
+    ckpt1, pkl = work / "flags" / "p1" / "checkpoint" / "000008.pt", work / "flags" / "p1" / \
+        "logits_netD.pkl"
+    check(ckpt1.is_file() and pkl.is_file(), "phase 1 wrote no checkpoint or logits")
+    with open(pkl, "rb") as f:
+        logits = pickle.load(f)
+    check(sorted(logits) == [2, 4, 6] and all(
+        v.shape == (N_DATA,) and np.isfinite(v).all() for v in logits.values()),
+        f"logits {sorted(logits)}")
+    tr2 = drive("train_ffhq_phase2 --bf16 --stream_data (4 steps)",
+                lambda: train_ffhq_phase2.main(common + [
+                    "--exp_name", "p2", "--baseline_exp_name", "p1", "--p1_step", "8",
+                    "--resample_score", "ldr_conf_3.0_ratio_50", "--iter", "12", "--bf16",
+                    "--stream_data"]))
+    check(tr2.stream and tr2._w_sampler is not None and tr2.drs_disc is not None and
+          (work / "flags" / "p2" / "checkpoint" / "000012.pt").is_file(),
+          "phase 2 did not stream its weighted draws or wrote no checkpoint")
+    print(f"phase 2 (bf16, streamed) metrics: {finite_metrics(tr2, ('d', 'g', 'path'))}")
+
+    # the reference's format: phase 1's weights under rosinality's keys
+    raw = torch.load(ckpt1, map_location="cpu", weights_only=True)
+    g_ref, d_ref = to_reference(raw["g"], raw["d"])
+    ema_ref = to_reference(raw["g_ema"], raw["d"])[0]
+    ref = work / "flags" / "reference" / "000008.pt"
+    ref.parent.mkdir(parents=True)
+    torch.save({"g": g_ref, "d": d_ref, "g_ema": ema_ref, "ada_aug_p": 0.3}, ref)
+    g = StyleGAN2Generator(SIZE, STYLE_DIM, N_MLP, CH_MULT, device=dev)
+    d = StyleGAN2Discriminator(SIZE, CH_MULT, device=dev)
+    read_stylegan2_ckpt(ref, g, d, use_drs=True)
+    want_d = {k: torch.zeros_like(v) if k.endswith("skip.conv.bias") else v
+              for k, v in raw["d"].items()}
+    check(all(torch.equal(v.cpu(), raw["g_ema"][k]) for k, v in g.state_dict().items()) and
+          all(torch.equal(v.cpu(), want_d[k]) for k, v in d.state_dict().items()),
+          "read_stylegan2_ckpt of the reference-format copy differs")
+    _build.reset_launches()
+    imgs = generate.main(["--size", str(SIZE), "--sample", "4", "--pics", "1", "--ckpt", str(ref),
+                          "--out_dir", str(work / "flags" / "ref_samples"), "--seed", str(SEED),
+                          "--device", dev.type])
+    check(imgs.shape == (4, SIZE, SIZE, 3) and np.isfinite(imgs).all() and
+          all(_build.LAUNCHES[k] > 0 for k in FORWARD_KERNELS), "generate from the reference file")
+    print(f"the reference-format copy of phase 1's checkpoint ({len(g_ref)} G and {len(d_ref)} "
+          f"D keys): read_stylegan2_ckpt exact, cli.generate 4 images finite")
+    return tr1, runs
+
+
+def flags_against_plain(dev, smi, work, tr1):
+    """14b. The streamed logit sweep of phase 1's D over the 512 images
+    against the device-resident sweep: bit for bit. One fp32 training step
+    (D with ADA, R1, G through ADA, path length) with and without remat from
+    the same weights and draws: losses and gradients within 1e-6 x max(1,
+    max|.|), and each run's peak device memory. Then ms per step (host
+    clock, synchronised) of the plain, path and R1 + path steps in fp32 and
+    in bf16, and of the plain step streamed and with remat. The remat
+    comparison runs at lr 0, so each piece starts from the same weights in
+    every run, with cuDNN's deterministic algorithms; a second plain run
+    gives the run-to-run spread that is left (ADA's adjoint adds its clamped
+    pass with atomics)."""
+    from diagan_tpu_torch.models.ada import sample_augment
+    from diagan_tpu_torch.models.stylegan2 import (
+        NoiseInjection,
+        StyleGAN2Discriminator,
+        StyleGAN2Generator,
+    )
+    from diagan_tpu_torch.train.stylegan2_trainer import FakeDraws, StyleGAN2Trainer
+
+    images = np.load(work / "train" / "data" / f"ffhq_{SIZE}.npy", mmap_mode="r")
+    resident = StyleGAN2Trainer(work / "flags" / "sweep", tr1.gen, tr1.disc, images, num_steps=0,
+                                augment_p=None, stream_data=False, device=dev)
+    ms = {}
+    for name, tr in (("streamed", tr1), ("resident", resident)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr._record_logits(-1)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    a = tr1.logit_results["netD_eval"].pop(-1)
+    b = resident.logit_results["netD_eval"].pop(-1)
+    check(a.shape == b.shape == (N_DATA,) and np.array_equal(a, b),
+          f"streamed sweep differs from the resident one: max abs {np.abs(a - b).max()}")
+    print(f"logit sweep of {N_DATA} images (phase 1's bf16 D): streamed {ms['streamed']:.2f} ms, "
+          f"resident {ms['resident']:.2f} ms, bit for bit equal [{smi}]")
+    del resident
+
+    torch.manual_seed(SEED)
+    g0 = StyleGAN2Generator(SIZE, STYLE_DIM, N_MLP, CH_MULT, device=dev)
+    d0 = StyleGAN2Discriminator(SIZE, CH_MULT, device=dev)
+    with torch.no_grad():
+        for m in g0.modules():
+            if isinstance(m, NoiseInjection):
+                m.weight.fill_(0.1)
+    bs = 16
+
+    def trainer(name, dtype=torch.float32, remat=False, stream=False, lr=0.002):
+        g = StyleGAN2Generator(SIZE, STYLE_DIM, N_MLP, CH_MULT, dtype=dtype, remat=remat,
+                               device=dev)
+        d = StyleGAN2Discriminator(SIZE, CH_MULT, dtype=dtype, remat=remat, device=dev)
+        g.load_state_dict(g0.state_dict())
+        d.load_state_dict(d0.state_dict())
+        return StyleGAN2Trainer(work / "flags" / name, g, d, images, num_steps=1, batch_size=bs,
+                                lr=lr, augment_p=0.3, stream_data=stream, seed=SEED, device=dev)
+
+    gen = torch.Generator(dev).manual_seed(SEED + 40)
+    real = torch.from_numpy(np.array(images[:bs])).to(dev).float() / 127.5 - 1.0
+    fakes = FakeDraws(torch.randn((bs, STYLE_DIM), generator=gen, device=dev),
+                      torch.randn((bs, STYLE_DIM), generator=gen, device=dev), 5,
+                      [torch.randn(s, generator=gen, device=dev)
+                       for s in g0.synthesis.noise_shapes(bs)])
+    aug = [sample_augment(bs, 0.3, SIZE, SIZE, torch.Generator().manual_seed(SEED + k))
+           for k in range(3)]
+    path = (torch.randn((bs // 2, STYLE_DIM), generator=gen, device=dev),
+            [torch.randn(s, generator=gen, device=dev) for s in g0.synthesis.noise_shapes(bs // 2)],
+            torch.randn((bs // 2, SIZE, SIZE, 3), generator=gen, device=dev))
+    pieces = ("D loss (ADA)", "R1", "G through ADA", "path length")
+    runs = {}
+    # cuDNN's deterministic algorithms: its default weight and data gradients
+    # add with atomics in a run-dependent order, and path length's penalty,
+    # (|J^T y| - mean)^2, magnifies that round-off (1.2e-4 of max|g| between
+    # two runs on an H100 80GB HBM3 without them); what is left is the order
+    # of ADA's adjoint's clamped pass in the G step, printed as the plain
+    # run's spread
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+        for name in ("plain", "remat", "plain again"):
+            # lr 0: every piece starts from the same weights (Adam turns a
+            # round-off-sized gradient into a step of lr, whatever its size)
+            tr = trainer(name.replace(" ", "_"), remat=name == "remat", lr=0.0)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res = []
+            for run, net in (
+                    (lambda: tr.d_step(tr.disc, tr.d_optim, real, fakes, aug[0], aug[1]),
+                     tr.disc),
+                    (lambda: tr.r1_step(tr.disc, tr.d_optim, real, aug[2]), tr.disc),
+                    (lambda: tr.g_step(fakes, aug[0]), tr.gen),
+                    (lambda: tr.path_step(*path), tr.gen)):
+                m = run()
+                res.append(({k: float(v) for k, v in m.items()},
+                            [p.grad.detach().clone() for p in net.parameters()
+                             if p.grad is not None]))
+            torch.cuda.synchronize()
+            runs[name] = (res, torch.cuda.max_memory_allocated() - held, held)
+            del tr
+
+    def errors(other):
+        """Per piece: (losses, gradients) of run `other` against the plain
+        run, each relative to max(1, max|.|)."""
+        out = []
+        for (m0, g0_), (m1, g1_) in zip(runs["plain"][0], runs[other][0]):
+            check(m0.keys() == m1.keys() and len(g0_) == len(g1_) > 0, f"{other}: pieces differ")
+            scale = max(1.0, max(w.abs().max().item() for w in g0_))
+            out.append((max(abs(m1[k] - m0[k]) / max(1.0, abs(m0[k])) for k in m0),
+                        max(max_err(a, b) for a, b in zip(g1_, g0_)) / scale))
+        return out
+
+    remat, spread = errors("remat"), errors("plain again")
+    report = "; ".join(f"{p}: losses {r[0]:.3e} ({s_[0]:.3e}), gradients {r[1]:.3e} ({s_[1]:.3e})"
+                       for p, r, s_ in zip(pieces, remat, spread))
+    check(all(r[0] <= 1e-6 and r[1] <= 1e-6 for r in remat),
+          f"remat against plain (the plain run's own spread in parentheses): {report}")
+    print(f"one fp32 step (batch 16, {SIZE} px, ADA p=0.3, lr 0, cuDNN deterministic) with remat "
+          f"against without, of max(1, max|.|), tol 1e-6 (a second plain run's distance in "
+          f"parentheses): {report} [{smi}]")
+    held = runs["plain"][2]
+    print(f"peak device memory of that step above the trainer's {held / 2**30:.2f} GiB: plain "
+          f"{runs['plain'][1] / 2**30:.2f} GiB, remat {runs['remat'][1] / 2**30:.2f} GiB [{smi}]")
+    del runs
+
+    def step_ms(tr, step, reps=3):
+        tr.train_step(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            tr.train_step(step)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        tr = trainer(f"time_{name}", dtype=dtype)
+        plain, path_ms, both = step_ms(tr, 1), step_ms(tr, 4), step_ms(tr, 16)
+        cadence = (12 * plain + 3 * path_ms + both) / 16
+        print(f"training StyleGAN2-{SIZE} batch 16 {name}, ADA p=0.3, device-resident: plain "
+              f"{plain:.2f} ms, path {path_ms:.2f} ms, R1 + path {both:.2f} ms; default cadence "
+              f"{cadence:.2f} ms/step = {1e3 / cadence:.3f} steps/s [{smi}]")
+        del tr
+    turns = {}
+    for name in ("resident", "streamed", "remat", "remat", "streamed", "resident"):
+        tr = trainer(name, remat=name == "remat", stream=name == "streamed")
+        turns.setdefault(name, []).append(step_ms(tr, 1))
+        del tr
+    for name, (t1, t2) in turns.items():
+        print(f"plain step fp32 {name}: {t1:.2f} / {t2:.2f} ms (two turns), mean "
+              f"{(t1 + t2) / 2:.2f} ms [{smi}]")
+
+
+def bf16_train_step_card_vs_cpu(dev, smi, work):
+    """14c. One bf16 training step on the card against the fp32 CPU run at
+    6b's size (32 px, width 1/4, batch 4) with its injected draws: G's images
+    and D's logits, then the D loss with ADA at p = 1, R1, the G step through
+    ADA and path length, losses and gradients, each within BF16_TOL x max(1,
+    max|.|); the CPU's own bf16 run's distance from fp32 is printed beside
+    each as the yardstick."""
+    import copy
+
+    from diagan_tpu_torch.data.synthetic import synthetic_natural
+    from diagan_tpu_torch.models.ada import sample_augment
+    from diagan_tpu_torch.models.stylegan2 import (
+        NoiseInjection,
+        StyleGAN2Discriminator,
+        StyleGAN2Generator,
+    )
+    from diagan_tpu_torch.train.stylegan2_trainer import FakeDraws, StyleGAN2Trainer
+
+    size, bs, width = 32, 4, 0.25
+    cpu = torch.device("cpu")
+    torch.manual_seed(SEED)
+    nets = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        nets[dtype] = (StyleGAN2Generator(size, STYLE_DIM, N_MLP, CH_MULT, width_scale=width,
+                                          dtype=dtype, device="cpu"),
+                       StyleGAN2Discriminator(size, CH_MULT, width_scale=width, dtype=dtype,
+                                              device="cpu"))
+    g32, d32 = nets[torch.float32]
+    with torch.no_grad():
+        for m in g32.modules():
+            if isinstance(m, NoiseInjection):
+                m.weight.fill_(0.1)
+    for m, m32 in zip(nets[torch.bfloat16], (g32, d32)):
+        m.load_state_dict(m32.state_dict())
+    rng = np.random.default_rng(SEED)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    real = torch.from_numpy(rng.uniform(-1, 1, (bs, size, size, 3)).astype(np.float32))
+    z1, z2 = normal(bs, STYLE_DIM), normal(bs, STYLE_DIM)
+    noises = [normal(*s) for s in g32.synthesis.noise_shapes(bs)]
+    aug = [sample_augment(bs, 1.0, size, size, torch.Generator().manual_seed(k)) for k in range(3)]
+    zp = normal(bs // 2, STYLE_DIM)
+    noises_p = [normal(*s) for s in g32.synthesis.noise_shapes(bs // 2)]
+    path_noise = normal(bs // 2, size, size, 3)
+    images = synthetic_natural(8, size, seed=3)[0]
+
+    def rel(got, want):
+        return (got.float().cpu() - want).abs().max().item() / max(1.0, want.abs().max().item())
+
+    sides = {"cpu fp32": (torch.float32, cpu), "card bf16": (torch.bfloat16, dev),
+             "cpu bf16": (torch.bfloat16, cpu)}
+    fwd = {}
+    for side, (dtype, d) in sides.items():
+        g, disc = (copy.deepcopy(m).to(d) for m in nets[dtype])
+        with torch.no_grad():
+            fwd[side] = (g.sample([z1.to(d), z2.to(d)], 3, noises=[n.to(d) for n in noises]).cpu(),
+                         disc(real.to(d))[0].cpu())
+    want = fwd["cpu fp32"]
+    f_err = [rel(c, w) for c, w in zip(fwd["card bf16"], want)]
+    f_yard = [rel(c, w) for c, w in zip(fwd["cpu bf16"], want)]
+    tr = {side: StyleGAN2Trainer(work / side.replace(" ", "_"),
+                                 *(copy.deepcopy(m).to(d) for m in nets[dtype]), images,
+                                 num_steps=1, batch_size=bs, augment_p=1.0, device=d)
+          for side, (dtype, d) in sides.items()}
+    pieces = {
+        "D loss (ADA p=1)": ("disc", lambda t, d: t.d_step(
+            t.disc, t.d_optim, real.to(d), FakeDraws(z1.to(d), z2.to(d), 3,
+                                                     [n.to(d) for n in noises]), aug[0], aug[1])),
+        "R1": ("disc", lambda t, d: t.r1_step(t.disc, t.d_optim, real.to(d), aug[2])),
+        "G through ADA": ("gen", lambda t, d: t.g_step(FakeDraws(
+            z1.to(d), z2.to(d), 3, [n.to(d) for n in noises]), aug[0])),
+        "path length": ("gen", lambda t, d: t.path_step(
+            zp.to(d), [n.to(d) for n in noises_p], path_noise.to(d))),
+    }
+    m_err, m_yard, g_err, g_yard = {}, {}, {}, {}
+    for name, (net, run) in pieces.items():
+        res = {}
+        start = [{k: v.clone() for k, v in getattr(tr["cpu fp32"], n).state_dict().items()}
+                 for n in ("gen", "disc")] + [tr["cpu fp32"].pl_mean.clone()]
+        for side, (dtype, d) in sides.items():  # each from the fp32 run's weights before it
+            t = tr[side]
+            t.gen.load_state_dict(start[0])
+            t.disc.load_state_dict(start[1])
+            t.pl_mean = start[2].to(d)
+            m = run(t, d)
+            res[side] = ({k: float(v) for k, v in m.items()},
+                         [p.grad.float().cpu() for p in getattr(t, net).parameters()
+                          if p.grad is not None])
+        (mw, gw) = res["cpu fp32"]
+        for side, m_out, g_out in (("card bf16", m_err, g_err), ("cpu bf16", m_yard, g_yard)):
+            mg, gg = res[side]
+            check(len(gg) == len(gw) > 0, f"{name}: gradient sets differ")
+            m_out[name] = max(abs(mg[k] - mw[k]) / max(1.0, abs(mw[k])) for k in mw)
+            scale = max(1.0, max(w.abs().max().item() for w in gw))
+            g_out[name] = max(max_err(a, b) for a, b in zip(gg, gw)) / scale
+    check(max(f_err) <= BF16_TOL and max(m_err.values()) <= BF16_TOL and
+          max(g_err.values()) <= BF16_TOL,
+          f"bf16 card vs CPU fp32: forwards {f_err}, losses {m_err}, gradients {g_err}")
+    print(f"card bf16 vs CPU fp32, StyleGAN2-{size} width {width} batch {bs} (tol {BF16_TOL} x "
+          f"max(1, max|.|); the CPU's bf16 run's distance in parentheses): G images "
+          f"{f_err[0]:.3e} ({f_yard[0]:.3e}), D logits {f_err[1]:.3e} ({f_yard[1]:.3e}) [{smi}]")
+    for name in pieces:
+        print(f"  {name}: losses {m_err[name]:.3e} ({m_yard[name]:.3e}), gradients "
+              f"{g_err[name]:.3e} ({g_yard[name]:.3e}) [{smi}]")
+    print(f"  in all: losses {max(m_err.values()):.3e} ({max(m_yard.values()):.3e}), gradients "
+          f"{max(g_err.values()):.3e} ({max(g_yard.values()):.3e}) [{smi}]")
+
+
+def time_bf16_kernels(dev, rng, ch, k4, smi, runs):
+    """14d. The bf16 instances A1-A3 and the fused act's kernels at the bf16
+    step's shapes (the SIZE px G upsample blur, the ToRGB skip and its
+    backward; the styled conv's activation at SIZE px): each against its plain
+    version in bf16 (kernel A 1e-2 x max|out|, as phase 3; the fused act 1
+    ulp, its db 1e-5 x sum|dx| per channel), its time (kernel A by CUDA-graph
+    replay in turns with one cuDNN call in bf16, the fused act eagerly, as
+    their fp32 rows), its plain version's and its bytes bound (bf16 reads and
+    writes: half the fp32 bytes). Launches: the bf16 launches of phase 14a's
+    runs. Returns the kernels-line entries."""
+    import torch.nn.functional as F
+
+    from diagan_tpu_torch.ops import (
+        fused_leaky_relu,
+        fused_leaky_relu_backward,
+        fused_leaky_relu_backward_plain,
+        fused_leaky_relu_plain,
+        upfirdn2d,
+        upfirdn2d_plain,
+    )
+    from diagan_tpu_torch.ops.upfirdn2d import fir_instance
+
+    bf = torch.bfloat16
+    bf16 = {k: sum(r[2].get(k, 0) for r in runs.values())
+            for k in {k for r in runs.values() for k in r[2]}}
+    c, k16 = ch[SIZE], k4 * 4
+
+    def dw(t, n):
+        return t.to(bf).expand(n, 1, *t.shape).contiguous()
+
+    passes = [
+        ("G upsample blur", (16, c, SIZE + 1, SIZE + 1), 1, 1, (1, 1),
+         lambda x: F.conv2d(x, dw(k16, c), padding=1, groups=c)),
+        ("ToRGB skip", (16, 3, SIZE // 2, SIZE // 2), 2, 1, (2, 1),
+         lambda x: F.conv_transpose2d(x, dw(k16, 3), stride=2, padding=1, groups=3)),
+        ("ToRGB skip backward", (16, 3, SIZE, SIZE), 1, 2, (1, 1),
+         lambda x: F.conv2d(x, dw(k16, 3), stride=2, padding=1, groups=3)),
+    ]
+    kernels = []
+    for name, shape, up, down, pad, lib in passes:
+        x = torch.randn(shape, generator=rng, device=dev).to(bf)
+        inst = fir_instance(4, 4, up, down, bf, torch.contiguous_format)
+        y = upfirdn2d(x, k16, up, down, pad)
+        want = upfirdn2d_plain(x, k16, up, down, pad)
+        err = max_err(y, want)
+        check(y.dtype == bf and err <= 1e-2 * want.float().abs().max().item(),
+              f"kernel A {inst} bf16 {name} err {err}")
+        ms = in_turns({"a": lambda: upfirdn2d(x, k16, up, down, pad), "lib": lambda: lib(x)})
+        (a1, a2), (l1, l2) = ms["a"], ms["lib"]
+        plain = cuda_ms(lambda: upfirdn2d_plain(x, k16, up, down, pad), iters=2, warmup=1)
+        b_p, by = bound((x.numel() + y.numel()) * 2, y.numel() * 16 // (up * up) * 2)
+        kernels.append({
+            "name": f"upfirdn2d_bf16/{inst}", "route": "cuda",
+            "source": "diagan_tpu_torch/csrc/upfirdn2d.cu",
+            "replaces": "diagan_tpu/ops/fir_pallas.py:44,131,226",
+            "launches": bf16.get(f"upfirdn2d/{inst}", 0), "max_abs_err": err,
+            "ms": (a1 + a2) / 2, "plain_ms": plain, "bound_ms": b_p, "bound_by": by,
+            "library_ms": (l1 + l2) / 2,
+            "shape": f"{tuple(x.shape)} -> {tuple(y.shape)} bf16, {name}; ms and library_ms: "
+                     f"device time of CUDA-graph replays, mean of two turns; library: one cuDNN "
+                     f"depthwise convolution in bf16",
+        })
+        del x, y, want
+
+    xb = torch.randn((16, c, SIZE, SIZE), generator=rng, device=dev).to(bf)
+    bb = torch.randn(c, generator=rng, device=dev).to(bf)
+    y = fused_leaky_relu(xb, bb)
+    want = fused_leaky_relu_plain(xb, bb)
+    check(bool(((y.float() - want.float()).abs() <= bf16_ulp(want)).all()),
+          "fused_leaky_relu bf16 differs from plain by more than 1 ulp")
+    b_f, by_f = bound(2 * xb.numel() * 2 + c * 2, xb.numel() * 3)
+    kernels.append({
+        "name": "fused_leaky_relu_bf16", "route": "triton",
+        "source": "diagan_tpu_torch/ops/fused_act.py", "replaces": "diagan_tpu/ops/fused_act.py:41",
+        "launches": bf16.get("fused_leaky_relu", 0), "max_abs_err": max_err(y, want),
+        "ms": cuda_ms(lambda: fused_leaky_relu(xb, bb)),
+        "plain_ms": cuda_ms(lambda: fused_leaky_relu_plain(xb, bb)),
+        "bound_ms": b_f, "bound_by": by_f, "library_ms": None,
+        "shape": f"{tuple(xb.shape)} bf16 (styled conv at {SIZE} px)",
+    })
+    g = torch.randn(xb.shape, generator=rng, device=dev).to(bf)
+    dx, db = fused_leaky_relu_backward(g, y)
+    dx_p, db_p = fused_leaky_relu_backward_plain(g, y)
+    check(bool(((dx.float() - dx_p.float()).abs() <= bf16_ulp(dx_p)).all()) and bool(
+        ((db - db_p).abs() <= 1e-5 * dx_p.float().abs().sum((0, 2, 3))).all()),
+        "fused_leaky_relu_backward bf16 differs from plain")
+    b_b, by_b = bound(3 * g.numel() * 2 + c * 4, 4 * g.numel())
+    kernels.append({
+        "name": "fused_leaky_relu_backward_bf16", "route": "triton",
+        "source": "diagan_tpu_torch/ops/fused_act.py", "replaces": "diagan_tpu/ops/fused_act.py:68",
+        "launches": bf16.get("fused_leaky_relu_backward", 0),
+        "max_abs_err": max(max_err(dx, dx_p), max_err(db, db_p)),
+        "ms": cuda_ms(lambda: fused_leaky_relu_backward(g, y)),
+        "plain_ms": cuda_ms(lambda: fused_leaky_relu_backward_plain(g, y)),
+        "bound_ms": b_b, "bound_by": by_b, "library_ms": None,
+        "shape": f"{tuple(g.shape)} bf16, dx (bf16) and db (fp32) (styled conv at {SIZE} px)",
+    })
+    for k in kernels:
+        print(f"{k['name']} at {k['shape']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
+              f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "
+              f"{k['bound_ms'] / k['ms']:.2f} of the bound; bf16 launches in phase 14a "
+              f"{k['launches']} [{smi}]")
+    print(f"phase 14a's bf16 launches in all: {bf16} (flr_db "
+          f"{bf16.get('fused_leaky_relu_db', 0)}) [{smi}]")
+    return kernels
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -3612,6 +4158,25 @@ def main(argv=None):
     ssgan_infomax_path(dev, smi, work)
     phase("13b. SSGAN, InfoMax, the step fusions and bf16, card against CPU")
     ssgan_infomax_card_vs_cpu(dev, smi)
+
+    # 14. the FFHQ trainer's flags and the checkpoint readers, on phase 6's data
+    phase("14a. the FFHQ trainer's flags (--bf16 --remat --stream_data --no_fuse --max_chunk), "
+          "the reference-format checkpoint")
+    tr_flags, flag_runs = flags_path(dev, smi, work)
+    for k in kernels:  # phase 14's fp32 launches join the fp32 rows
+        name = k["name"]
+        if name in _build.LAUNCHES:
+            k["launches"] += sum(r[0][name] - r[2].get(name, 0) for r in flag_runs.values())
+        elif name.startswith("upfirdn2d/"):
+            inst = name.split("/", 1)[1]
+            k["launches"] += sum(r[1][inst] - r[2].get(name, 0) for r in flag_runs.values())
+    phase("14b. stream mode and remat against the plain run; steps/s and peak memory")
+    flags_against_plain(dev, smi, work, tr_flags)
+    del tr_flags
+    phase("14c. one bf16 training step, card against CPU")
+    bf16_train_step_card_vs_cpu(dev, smi, work / "bf16_grads")
+    phase("14d. the bf16 kernels at the bf16 step's shapes")
+    kernels += time_bf16_kernels(dev, rng_b, ch, k4, smi, flag_runs)
 
     shutil.rmtree(work, ignore_errors=True)
     phase("done")

@@ -6,10 +6,16 @@ recording for the LDR scores).
 
 The argparse surface of stylegan2/train_ffhq.py, plus --device (default
 cuda; no card and no --device cpu raises). --root holds ffhq_{size}.npy (or
-an LMDB or image directory where lmdb / Pillow are installed); without any,
-a procedural stand-in dataset is used. Flags of the JAX trainer that the
-port does not have yet (--bf16, --remat, --stream_data, --no_fuse,
---max_chunk, --data_parallel) are accepted and raise when set.
+an LMDB or image directory where lmdb / Pillow are installed; cli.prepare_data
+writes the npy); without any, a procedural stand-in dataset is used.
+
+The JAX trainer's own flags: --bf16 (G's synthesis and D's backbone in
+bfloat16; parameters, the mapping and D's head fp32), --remat (recompute
+each StyledConv / ToRGB and each D block in the backward), --stream_data
+(keep the dataset on the host and stream real batches through the native
+gather; automatic above 6 GiB). --no_fuse and --max_chunk are accepted and
+change nothing: the port runs one step at a time. --data_parallel is
+accepted and raises (not in the port yet).
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ from diagan_tpu_torch.device import resolve_device
 from diagan_tpu_torch.models.stylegan2 import StyleGAN2Discriminator, StyleGAN2Generator
 from diagan_tpu_torch.train.stylegan2_trainer import StyleGAN2Trainer
 
-NOT_PORTED = ("bf16", "remat", "stream_data", "no_fuse", "max_chunk", "data_parallel")
+NOT_PORTED = ("data_parallel",)
 
 
 def build_parser():
@@ -60,12 +66,19 @@ def build_parser():
     parser.add_argument("--logit_save_steps", default=100, type=int)
     parser.add_argument("--save_logit_after", default=195000, type=int)
     parser.add_argument("--stop_save_logit_after", default=200000, type=int)
-    parser.add_argument("--bf16", action="store_true")
-    parser.add_argument("--stream_data", action="store_true")
-    parser.add_argument("--remat", action="store_true")
-    parser.add_argument("--no_fuse", action="store_true")
-    parser.add_argument("--max_chunk", default=None, type=int)
-    parser.add_argument("--data_parallel", action="store_true")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 compute for G's synthesis and D's backbone")
+    parser.add_argument("--stream_data", action="store_true",
+                        help="stream real batches from the host (automatic above 6 GiB)")
+    parser.add_argument("--remat", action="store_true",
+                        help="recompute each G layer and D block in the backward")
+    parser.add_argument("--no_fuse", action="store_true",
+                        help="the JAX trainer's unfused dispatch; changes nothing in the port, "
+                             "which runs one step at a time")
+    parser.add_argument("--max_chunk", default=None, type=int,
+                        help="the JAX trainer's steps per dispatch; changes nothing in the port")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="not in the port yet: raises")
     parser.add_argument("--save_every", type=int, default=5000)
     parser.add_argument("--auto_resume", action="store_true")
     parser.add_argument("--device", type=str, default="cuda")
@@ -79,18 +92,20 @@ def make_trainer(args, sample_weights=None, drs=False, r1=None):
     unported = [f"--{f}" for f in NOT_PORTED if getattr(args, f) not in (False, None)]
     if unported:
         raise NotImplementedError(f"{', '.join(unported)}: not in the port yet "
-                                  "(see ROADMAP.md, Queue A item 4)")
+                                  "(see ROADMAP.md, Queue A item 6)")
     torch.manual_seed(args.seed)
     np.random.seed(args.seed)
     output_dir = Path(args.work_dir) / args.exp_name
     images = load_ffhq(args.root, size=args.size)
 
-    def disc():
-        return StyleGAN2Discriminator(size=args.size, channel_multiplier=args.channel_multiplier,
-                                      device=device)
+    nets = dict(size=args.size, channel_multiplier=args.channel_multiplier,
+                dtype=torch.bfloat16 if args.bf16 else torch.float32, remat=args.remat,
+                device=device)
 
-    gen = StyleGAN2Generator(size=args.size, channel_multiplier=args.channel_multiplier,
-                             device=device)
+    def disc():
+        return StyleGAN2Discriminator(**nets)
+
+    gen = StyleGAN2Generator(**nets)
     trainer = StyleGAN2Trainer(
         output_dir, gen, disc(), images,
         num_steps=args.iter,
@@ -114,6 +129,9 @@ def make_trainer(args, sample_weights=None, drs=False, r1=None):
         save_logit_after=args.save_logit_after,
         stop_save_logit_after=args.stop_save_logit_after,
         seed=args.seed,
+        stream_data=True if args.stream_data else None,
+        fuse_steps=not args.no_fuse,
+        max_chunk=args.max_chunk,
         device=device,
     )
     start = 0

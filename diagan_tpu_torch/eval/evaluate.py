@@ -36,7 +36,7 @@ from diagan_tpu_torch.eval.drs import minmax_uint8 as _minmax_uint8
 from diagan_tpu_torch.eval.drs import to_uint8
 from diagan_tpu_torch.eval.inception import InceptionFeaturizer
 from diagan_tpu_torch.models.stylegan2 import StyleGAN2Generator
-from diagan_tpu_torch.train.checkpoint import load_weights
+from diagan_tpu_torch.train.checkpoint import load_weights, read_stylegan2_file
 
 
 def _module_device(module):
@@ -145,10 +145,13 @@ def save_stylegan2_ckpt(path, g_ema, d=None, drs_d=None):
 
 
 def read_stylegan2_ckpt(path, gen, disc=None, use_drs=False):
-    """Load g_ema into `gen` and, with use_drs, drs_d (else d) into `disc`,
-    in place, on the modules' devices. Returns (gen, disc)."""
-    raw = torch.load(path, map_location=_module_device(gen), weights_only=True)
-    gen.load_state_dict(raw["g_ema"])
+    """Load g_ema (else g) into `gen` and, with use_drs, drs_d (else d) into
+    `disc`, in place, on the modules' devices. `path` is the port's
+    checkpoint (this module's or the trainer's), the JAX package's msgpack
+    one or the reference's `{iter:06d}.pt` (train/checkpoint.py
+    read_stylegan2_file). Returns (gen, disc)."""
+    raw = read_stylegan2_file(path)
+    gen.load_state_dict(raw["g_ema"] if "g_ema" in raw else raw["g"])
     if use_drs:
         if disc is None:
             raise ValueError("use_drs needs the discriminator module")

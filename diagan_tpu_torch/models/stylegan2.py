@@ -19,9 +19,18 @@ upfirdn2d (the JAX blur fold is a TPU MXU trade and is off on its CPU
 backend, so the parity tests compare the unfolded form on both sides).
 
 Every module takes `device=` (default "cuda"; G and D check it with
-device.py). The synthesis network takes a compute `dtype` (bf16 for
-`generate --bf16`; parameters, the mapping and demodulation stay fp32);
-the discriminator runs in fp32.
+device.py). G's synthesis network and D's backbone take a compute `dtype`
+(bf16 for `generate --bf16` and `train_ffhq --bf16`): parameters, the
+mapping, the demodulation, D's minibatch-stddev statistics and its dense
+head stay fp32, each DResBlock's output is cast back to `dtype`, as the JAX
+modules do. G and D take `remat` (`train_ffhq --remat`): under autograd each
+StyledConv / ToRGB and each DResBlock runs inside a non-reentrant
+`torch.utils.checkpoint`, so its internals are recomputed in the backward
+instead of kept. The checkpoint is applied in `forward`, not by wrapping
+modules, so the state_dict keys are the same with and without remat; no
+random draw happens inside a checkpointed region (the noises are drawn
+before it), since the checkpoint does not replay an explicit
+torch.Generator.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from diagan_tpu_torch.device import resolve_device
 from diagan_tpu_torch.ops import fused_leaky_relu, make_resample_kernel, upfirdn2d
@@ -39,6 +49,14 @@ BLUR_KERNEL = (1, 3, 3, 1)
 
 def _normal(shape, device, std=1.0):
     return nn.Parameter(torch.randn(shape, device=device) * std)
+
+
+def _maybe_remat(remat, fn, *args):
+    """fn(*args), inside a non-reentrant checkpoint when `remat` is set and
+    autograd records. fn draws nothing, so no RNG state is stashed."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 class EqualDense(nn.Module):
@@ -65,11 +83,14 @@ class EqualDense(nn.Module):
 
 class EqualConv(nn.Module):
     """Equalized-LR conv, weight (O, I, k, k) scaled by 1/sqrt(I*k*k).
-    stride 1 pads "SAME" (odd k); stride 2 expects a pre-blurred input, VALID."""
+    stride 1 pads "SAME" (odd k); stride 2 expects a pre-blurred input, VALID.
+    A bf16 `dtype` casts the input, the scaled weight and the bias (Flax's
+    mixed precision); fp32 leaves the parameters' own dtype."""
 
     def __init__(self, in_features, features, kernel_size=3, stride=1,
-                 use_bias=True, device="cuda"):
+                 use_bias=True, dtype=torch.float32, device="cuda"):
         super().__init__()
+        self.dtype = dtype
         self.weight = _normal((features, in_features, kernel_size, kernel_size), device)
         self.bias = nn.Parameter(torch.zeros(features, device=device)) if use_bias else None
         self.scale = 1.0 / math.sqrt(in_features * kernel_size * kernel_size)
@@ -77,9 +98,13 @@ class EqualConv(nn.Module):
         self.padding = kernel_size // 2 if stride == 1 else 0
 
     def forward(self, x):
-        y = F.conv2d(x, self.weight * self.scale, stride=self.stride, padding=self.padding)
-        if self.bias is not None:
-            y = y + self.bias[None, :, None, None]
+        w, b = self.weight * self.scale, self.bias
+        if self.dtype != torch.float32:
+            x, w = x.to(self.dtype), w.to(self.dtype)
+            b = None if b is None else b.to(self.dtype)
+        y = F.conv2d(x, w, stride=self.stride, padding=self.padding)
+        if b is not None:
+            y = y + b[None, :, None, None]
         return y
 
 
@@ -217,11 +242,12 @@ class SynthesisNetwork(nn.Module):
 
     def __init__(self, size=256, style_dim=512, channel_multiplier=2,
                  width_scale=1.0, blur_kernel=BLUR_KERNEL, dtype=torch.float32,
-                 device="cuda"):
+                 remat=False, device="cuda"):
         super().__init__()
         ch = _channels(size, channel_multiplier, width_scale)
         self.size = size
         self.dtype = dtype
+        self.remat = remat
         self.input = _normal((1, ch[4], 4, 4), device)
         kw = dict(blur_kernel=blur_kernel, dtype=dtype, device=device)
         layers = {"conv1": StyledConv(ch[4], ch[4], style_dim, **kw),
@@ -248,19 +274,28 @@ class SynthesisNetwork(nn.Module):
         """styles: (N, n_latent, style_dim). noises: list of (N, H, W, 1), or
         None to draw them from `generator`. Returns (N, 3, H, W) fp32."""
         n = styles.shape[0]
+        remat = self.remat and torch.is_grad_enabled()
+        if noises is None and remat:
+            # drawn before the checkpointed layers, in the order (and dtype)
+            # in which each NoiseInjection would draw its own
+            noises = [torch.randn(s, generator=generator, device=styles.device,
+                                  dtype=self.dtype) for s in self.noise_shapes(n)]
         nz = (None if noises is None
               else [t.permute(0, 3, 1, 2) for t in noises])
         L = self.layers
+
+        def conv(name, x, style, i):
+            return _maybe_remat(remat, L[name], x, style, None if nz is None else nz[i],
+                                generator)
+
         x = self.input.to(self.dtype).repeat(n, 1, 1, 1)
-        x = L["conv1"](x, styles[:, 0], None if nz is None else nz[0], generator)
-        skip = L["to_rgb1"](x, styles[:, 1])
+        x = conv("conv1", x, styles[:, 0], 0)
+        skip = _maybe_remat(remat, L["to_rgb1"], x, styles[:, 1])
         li, ni, res = 1, 1, 8
         while res <= self.size:
-            x = L[f"conv_up_{res}"](x, styles[:, li],
-                                    None if nz is None else nz[ni], generator)
-            x = L[f"conv_{res}"](x, styles[:, li + 1],
-                                 None if nz is None else nz[ni + 1], generator)
-            skip = L[f"to_rgb_{res}"](x, styles[:, li + 2], skip)
+            x = conv(f"conv_up_{res}", x, styles[:, li], ni)
+            x = conv(f"conv_{res}", x, styles[:, li + 1], ni + 1)
+            skip = _maybe_remat(remat, L[f"to_rgb_{res}"], x, styles[:, li + 2], skip)
             li, ni, res = li + 2, ni + 2, res * 2
         return skip.float()
 
@@ -270,7 +305,7 @@ class StyleGAN2Generator(nn.Module):
     forward(z) and sample(...) return NHWC images (N, size, size, 3)."""
 
     def __init__(self, size=256, style_dim=512, n_mlp=8, channel_multiplier=2,
-                 width_scale=1.0, dtype=torch.float32, device="cuda"):
+                 width_scale=1.0, dtype=torch.float32, remat=False, device="cuda"):
         super().__init__()
         device = resolve_device(device)
         self.size = size
@@ -279,7 +314,7 @@ class StyleGAN2Generator(nn.Module):
         self.mapping = MappingNetwork(style_dim, n_mlp, device=device)
         self.synthesis = SynthesisNetwork(size, style_dim, channel_multiplier,
                                           width_scale=width_scale, dtype=dtype,
-                                          device=device)
+                                          remat=remat, device=device)
 
     def forward(self, z, noises=None, generator=None):
         return self.sample([z], noises=noises, generator=generator)
@@ -308,7 +343,7 @@ class StyleGAN2Generator(nn.Module):
 
 class ConvLayer(nn.Module):
     def __init__(self, in_features, features, kernel_size=3, downsample=False,
-                 activate=True, blur_kernel=BLUR_KERNEL, device="cuda"):
+                 activate=True, blur_kernel=BLUR_KERNEL, dtype=torch.float32, device="cuda"):
         super().__init__()
         if downsample:
             p = (len(blur_kernel) - 2) + (kernel_size - 1)
@@ -317,7 +352,7 @@ class ConvLayer(nn.Module):
             self.blur = None
         self.conv = EqualConv(in_features, features, kernel_size,
                               stride=2 if downsample else 1,
-                              use_bias=not activate, device=device)
+                              use_bias=not activate, dtype=dtype, device=device)
         self.bias = nn.Parameter(torch.zeros(features, device=device)) if activate else None
 
     def forward(self, x):
@@ -325,14 +360,16 @@ class ConvLayer(nn.Module):
             x = self.blur(x)
         x = self.conv(x)
         if self.bias is not None:
-            x = fused_leaky_relu(x, self.bias)
+            x = fused_leaky_relu(x, self.bias.to(x.dtype))
         return x
 
 
 class DResBlock(nn.Module):
-    def __init__(self, in_features, features, blur_kernel=BLUR_KERNEL, device="cuda"):
+    def __init__(self, in_features, features, blur_kernel=BLUR_KERNEL, dtype=torch.float32,
+                 device="cuda"):
         super().__init__()
-        kw = dict(blur_kernel=blur_kernel, device=device)
+        self.dtype = dtype
+        kw = dict(blur_kernel=blur_kernel, dtype=dtype, device=device)
         self.conv1 = ConvLayer(in_features, in_features, 3, **kw)
         self.conv2 = ConvLayer(in_features, features, 3, downsample=True, **kw)
         self.skip = ConvLayer(in_features, features, 1, downsample=True,
@@ -340,37 +377,45 @@ class DResBlock(nn.Module):
 
     def forward(self, x):
         out = self.conv2(self.conv1(x))
-        return (out + self.skip(x)) / math.sqrt(2)
+        out = (out + self.skip(x)) / math.sqrt(2)
+        return out if self.dtype == torch.float32 else out.to(self.dtype)
 
 
 class StyleGAN2Discriminator(nn.Module):
-    """forward(x NHWC) -> (logits (N,), {"features": (N, C4)}); fp32."""
+    """forward(x NHWC) -> (logits (N,), {"features": (N, C4)}), both fp32.
+    The backbone runs in `dtype`; the minibatch-stddev statistics and the
+    dense head in fp32. `remat` checkpoints each DResBlock under autograd."""
 
     def __init__(self, size=256, channel_multiplier=2, width_scale=1.0,
-                 stddev_group=4, device="cuda"):
+                 stddev_group=4, dtype=torch.float32, remat=False, device="cuda"):
         super().__init__()
         device = resolve_device(device)
         ch = _channels(size, channel_multiplier, width_scale)
         log_size = int(math.log2(size))
-        self.from_rgb = ConvLayer(3, ch[size], 1, device=device)
+        kw = dict(dtype=dtype, device=device)
+        self.from_rgb = ConvLayer(3, ch[size], 1, **kw)
         self.blocks = nn.ModuleList(
-            DResBlock(ch[res], ch[res // 2], device=device)
+            DResBlock(ch[res], ch[res // 2], **kw)
             for res in [2**j for j in range(log_size, 2, -1)])
-        self.final_conv = ConvLayer(ch[4] + 1, ch[4], 3, device=device)
+        self.final_conv = ConvLayer(ch[4] + 1, ch[4], 3, **kw)
         self.final_linear = EqualDense(ch[4] * 16, ch[4], activation=True, device=device)
         self.out_linear = EqualDense(ch[4], 1, device=device)
         self.stddev_group = stddev_group
+        self.dtype = dtype
+        self.remat = remat
 
     def forward(self, x):
         h = self.from_rgb(x.permute(0, 3, 1, 2).contiguous())
         for block in self.blocks:
-            h = block(h)
-        # minibatch stddev (group 4)
+            h = _maybe_remat(self.remat, block, h)
+        # minibatch stddev (group 4), its statistics in fp32
         n, c, hh, ww = h.shape
         g = min(self.stddev_group, n)
         y = h.reshape(g, -1, c, hh, ww)
+        if self.dtype != torch.float32:
+            y = y.float()
         std = torch.sqrt(y.var(0, unbiased=False) + 1e-8).mean((1, 2, 3), keepdim=True)
-        h = self.final_conv(torch.cat([h, std.repeat(g, 1, hh, ww)], 1))
+        h = self.final_conv(torch.cat([h, std.to(h.dtype).repeat(g, 1, hh, ww)], 1))
         h = self.final_linear(h.reshape(n, -1))
         logits = self.out_linear(h)
         return logits.squeeze(-1), {"features": h}

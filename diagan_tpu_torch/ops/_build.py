@@ -27,18 +27,29 @@ _loaded: dict[str, ctypes.CDLL] = {}
 # Launch counts, one plain integer per kernel. Each wrapper adds one where it
 # launches its kernel and nowhere else; a run zeroes them before the path it
 # drives and reads them after, to show that the path went through the kernels.
+# fused_leaky_relu_backward launches flr_bwd, and with it flr_db (the
+# per-channel bias gradient) unless the caller skips the sums, as the double
+# backward does: fused_leaky_relu_db counts those flr_db launches.
 LAUNCHES = {"upfirdn2d": 0, "upfirdn2d_backward": 0, "fused_leaky_relu": 0,
-            "fused_leaky_relu_backward": 0, "affine_warp_gather": 0, "affine_warp_scatter": 0,
-            "affine_warp2_gather": 0, "affine_warp2_scatter": 0}
+            "fused_leaky_relu_backward": 0, "fused_leaky_relu_db": 0, "affine_warp_gather": 0,
+            "affine_warp_scatter": 0, "affine_warp2_gather": 0, "affine_warp2_scatter": 0}
 # Launches of upfirdn2d (forward and backward together) by kernel instance;
 # ops/upfirdn2d.py enters its FIR_INSTANCES names when it is imported.
 FIR_INSTANCES: dict[str, int] = {}
+# The launches among those on bfloat16 tensors: by kernel (LAUNCHES' names)
+# and by kernel A instance ("upfirdn2d/<instance>"); absent means none.
+BF16_LAUNCHES: dict[str, int] = {}
+
+
+def count_bf16(name: str):
+    BF16_LAUNCHES[name] = BF16_LAUNCHES.get(name, 0) + 1
 
 
 def reset_launches():
     for counts in (LAUNCHES, FIR_INSTANCES):
         for name in counts:
             counts[name] = 0
+    BF16_LAUNCHES.clear()
 
 
 def _nvcc() -> str:

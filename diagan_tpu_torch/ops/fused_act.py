@@ -157,6 +157,8 @@ def _launch_forward(x, bias, negative_slope, scale):
         _kernels()[0][grid](x, bias, y, numel, inner, x.shape[1], float(negative_slope),
                             float(scale), BLOCK=_BLOCK, num_warps=4)
     _build.LAUNCHES["fused_leaky_relu"] += 1
+    if x.dtype == torch.bfloat16:
+        _build.count_bf16("fused_leaky_relu")
     return y
 
 
@@ -187,6 +189,12 @@ def _launch_backward(g, y, negative_slope, scale, extra, sums):
             flr_db[(c,)](part, db, splits, SPLITS=max(2, 1 << (splits - 1).bit_length()),
                          num_warps=1)
     _build.LAUNCHES["fused_leaky_relu_backward"] += 1
+    if sums:
+        _build.LAUNCHES["fused_leaky_relu_db"] += 1
+    if g.dtype == torch.bfloat16:
+        _build.count_bf16("fused_leaky_relu_backward")
+        if sums:
+            _build.count_bf16("fused_leaky_relu_db")
     return dx, db
 
 

@@ -189,6 +189,9 @@ def _launch(x, taps, up, down, pad, counter):
         raise RuntimeError(f"upfirdn2d kernel launch failed: cudaError {err}")
     _build.LAUNCHES[counter] += 1
     _build.FIR_INSTANCES[instance] += 1
+    if x.dtype == torch.bfloat16:
+        _build.count_bf16(counter)
+        _build.count_bf16(f"upfirdn2d/{instance}")
     return y
 
 

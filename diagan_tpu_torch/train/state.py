@@ -43,6 +43,23 @@ def load_moments(optim, state):
         group.update(h)
 
 
+def load_adam_moments(optim, module, moments):
+    """Set torch Adam's state of each of `module`'s parameters from named
+    moments {"count", "exp_avg": {name: tensor}, "exp_avg_sq": {...}} (a
+    JAX checkpoint's optax state, utils/jax_params.py optax_adam_moments):
+    exp_avg / exp_avg_sq are optax's mu / nu, count is every parameter's
+    step. The lr and betas stay this run's."""
+    params = dict(module.named_parameters())
+    for field in ("exp_avg", "exp_avg_sq"):
+        if set(moments[field]) != set(params):
+            raise ValueError(f"{field}: the moments' names differ from the module's "
+                             f"({sorted(set(moments[field]) ^ set(params))[:4]}...)")
+    for name, p in params.items():
+        optim.state[p] = {"step": torch.tensor(float(moments["count"])),
+                          "exp_avg": moments["exp_avg"][name].to(p),
+                          "exp_avg_sq": moments["exp_avg_sq"][name].to(p)}
+
+
 class NetState:
     """A module, its Adam optimizer and its update count."""
 

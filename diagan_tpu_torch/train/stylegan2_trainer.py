@@ -22,16 +22,33 @@ them, latents, noises and indices on the device from one torch.Generator,
 the mixing cutoff and the ADA matrices on the host from another, so tests
 can inject the same draws into both packages.
 
+Data: the uint8 dataset lives on the card, or, in stream mode (stream_data,
+by default when it is larger than hbm_data_budget, as in the JAX trainer:
+FFHQ-256 is 13.76 GB), stays on the host, read-only (e.g. the npy cache's
+memmap). There real batches are gathered by the native runtime
+(native/diagan_io.cpp, the JAX package's own code): weighted indices from
+its alias sampler seeded with `seed`, uniform ones from
+np.random.default_rng(seed + 1), drawn in the order of the JAX trainer's
+_host_stacks at one step per chunk (D, DRS-D, then on an R1 step the R1 D
+and the R1 DRS-D), so the index stream is the JAX package's. The gathered
+batch is copied to the card from pinned memory. The logit sweep then goes
+by host slabs of whole batches, the same batches of 64 as the resident
+sweep, so the two give the same logits bit for bit.
+
 The TPU dispatch machinery of the JAX trainer (scanned chunks, the dispatch
-envelope, per-variant programs, shard_map, host streaming) has no
-counterpart: the card runs the loop eagerly.
+envelope, per-variant programs, shard_map) has no counterpart: the card runs
+the loop eagerly, one step at a time. `fuse_steps` and `max_chunk` are kept
+for the CLI's surface and change nothing here; the JAX trainer keys its
+draws by absolute step, so they change nothing in its result stream either.
 
 Outputs, as the JAX trainer writes them: `checkpoint/{step:06d}.pt` (a
 torch payload {g, d, g_ema, g_optim, d_optim, ada_aug_p, pl_mean, step[,
 drs_d, drs_d_optim]}, which eval.evaluate.read_stylegan2_ckpt also reads)
 and `logits_netD.pkl` ({step: float64[N]} from full-dataset D sweeps at
 batch 64; phase 2 sweeps drs_d and writes the same file name, as the JAX
-trainer does).
+trainer does). `load_ckpt` also reads the JAX package's msgpack
+checkpoints and the reference's `{iter:06d}.pt` (train/checkpoint.py
+read_stylegan2_file).
 """
 from __future__ import annotations
 
@@ -58,9 +75,12 @@ from diagan_tpu_torch.models.losses import (
     path_length_penalty,
     r1_penalty,
 )
-from diagan_tpu_torch.train.state import load_moments
+from diagan_tpu_torch.native import NativeWeightedSampler, gather_u8
+from diagan_tpu_torch.train.checkpoint import read_stylegan2_file
+from diagan_tpu_torch.train.state import load_adam_moments, load_moments
 
 EMA_DECAY = 0.5 ** (32 / (10 * 1000))
+SWEEP_SLAB_BYTES = 256 << 20  # host slab of a streamed logit sweep (whole batches)
 
 
 def reg_ratio_adam(params, lr, reg_every):
@@ -77,6 +97,46 @@ def _to_device_u8(images, device, slab=1024):
     for lo in range(0, len(images), slab):
         out[lo:lo + slab].copy_(torch.from_numpy(np.array(images[lo:lo + slab])))
     return out
+
+
+def _read_only(images):
+    """A read-only C-contiguous view of a uint8 (N, H, W, C) array (a
+    memmap stays a memmap: nothing is copied when it is C-contiguous)."""
+    arr = np.ascontiguousarray(images)
+    if arr.dtype != np.uint8:
+        raise TypeError(f"the dataset must be uint8, got {arr.dtype}")
+    view = arr.view()
+    view.flags.writeable = False
+    return view
+
+
+class _Staging:
+    """Gathered uint8 batches to the device through a ring of pinned host
+    buffers: each copy is asynchronous, and a buffer is refilled only after
+    its previous copy has completed (its CUDA event). On the CPU the buffers
+    are plain and the copy is the float conversion itself."""
+
+    def __init__(self, shape, device, slots=8):
+        self.device = device
+        self.pinned = device.type == "cuda"
+        self.bufs = [torch.empty(shape, dtype=torch.uint8, pin_memory=self.pinned)
+                     for _ in range(slots)]
+        self.events = [None] * slots
+        self.i = 0
+
+    def __call__(self, images, idx):
+        """images[idx] on the device, as float32 in [-1, 1]."""
+        k = self.i % len(self.bufs)
+        self.i += 1
+        if self.events[k] is not None:
+            self.events[k].synchronize()
+        buf = self.bufs[k]
+        gather_u8(images, idx, out=buf.numpy())
+        x = buf.to(self.device, non_blocking=self.pinned).float() / 127.5 - 1.0
+        if self.pinned:
+            self.events[k] = torch.cuda.Event()
+            self.events[k].record()
+        return x
 
 
 class FakeDraws(NamedTuple):
@@ -117,10 +177,15 @@ class StyleGAN2Trainer:
         save_logit_after=0,
         stop_save_logit_after=10**9,
         seed=0,
+        stream_data=None,  # None: stream when the dataset exceeds hbm_data_budget bytes
+        hbm_data_budget=6 << 30,
+        fuse_steps=True,  # the JAX trainer's dispatch options: no effect here
+        max_chunk=None,
         device="cuda",
     ):
         """gen / disc / drs_disc: the port's StyleGAN2 modules, already on
-        `device`. dataset_images: uint8 (N, H, W, 3), copied to the device."""
+        `device`. dataset_images: uint8 (N, H, W, 3), copied to the device,
+        or in stream mode read from the host as it is."""
         self.device = resolve_device(device)
         self.output_path = Path(output_path)
         self.output_path.mkdir(parents=True, exist_ok=True)
@@ -142,8 +207,23 @@ class StyleGAN2Trainer:
         self.style_dim = gen.style_dim
         self.n_latent = int(math.log2(gen.size)) * 2 - 2
 
-        self.images = _to_device_u8(dataset_images, self.device)
-        self.num_data = len(self.images)
+        self.fuse_steps = bool(fuse_steps)
+        self.max_chunk = int(max_chunk) if max_chunk else None
+        self.num_data = len(dataset_images)
+        if stream_data is None:
+            stream_data = dataset_images.nbytes > hbm_data_budget
+        self.stream = bool(stream_data)
+        if self.stream:
+            self.images = None
+            self.images_np = _read_only(dataset_images)
+            # the JAX trainer's streams: the alias sampler over the raw
+            # scores, seeded with `seed`; uniform draws from seed + 1
+            self._w_sampler = (NativeWeightedSampler(sample_weights, seed=seed)
+                               if sample_weights is not None else None)
+            self._u_rng = np.random.default_rng(seed + 1)
+            self._staging = _Staging((batch_size,) + self.images_np.shape[1:], self.device)
+        else:
+            self.images = _to_device_u8(dataset_images, self.device)
         self.weights = (weights_from_scores(sample_weights, self.device)
                         if sample_weights is not None else None)
 
@@ -183,6 +263,12 @@ class StyleGAN2Trainer:
     def draw_real(self, weighted):
         """A batch of reals in [-1, 1], NHWC; weighted by the phase-2 scores
         when `weighted` and the trainer has them, else uniform."""
+        if self.stream:
+            if weighted and self._w_sampler is not None:
+                idx = self._w_sampler.sample(self.batch_size)
+            else:
+                idx = self._u_rng.integers(0, self.num_data, self.batch_size)
+            return self._staging(self.images_np, idx)
         if weighted and self.weights is not None:
             idx = sample_weighted_indices(self.weights, self.batch_size, self.rng)
         else:
@@ -293,17 +379,32 @@ class StyleGAN2Trainer:
 
     # ------------------------------------------------------------------
     # logits, checkpoints, loop
+    def _sweep_batches(self, batch):
+        """The sweep's real batches: `batch` consecutive indices each, the
+        last batch padded with the last index (the minibatch-stddev groups
+        then match the JAX sweep's). In stream mode they come in host slabs
+        of whole batches, one copy to the device a slab."""
+        n = self.num_data
+        if not self.stream:
+            for lo in range(0, n, batch):
+                idx = torch.arange(lo, lo + batch, device=self.device).clamp_(max=n - 1)
+                yield self.real_batch(idx)
+            return
+        per_slab = max(1, SWEEP_SLAB_BYTES // (batch * self.images_np[0].nbytes)) * batch
+        for lo in range(0, n, per_slab):
+            nb = -(-min(per_slab, n - lo) // batch)
+            idx = np.arange(lo, lo + nb * batch).clip(max=n - 1)
+            slab = torch.from_numpy(gather_u8(self.images_np, idx)).to(self.device)
+            for b in range(nb):
+                yield slab[b * batch:(b + 1) * batch].float() / 127.5 - 1.0
+
     @torch.no_grad()
     def _record_logits(self, step, batch=64):
-        """Full-dataset sweep of D (phase 1) or drs_d (phase 2) in batches of
-        64 consecutive indices, the last batch padded with the last index (the
-        minibatch-stddev groups then match the JAX sweep's)."""
+        """Full-dataset sweep of D (phase 1) or drs_d (phase 2), batch by
+        batch (`_sweep_batches`)."""
         disc = self.drs_disc if self.drs_disc is not None else self.disc
         name = "netD_drs" if self.drs_disc is not None else "netD"
-        out = []
-        for lo in range(0, self.num_data, batch):
-            idx = torch.arange(lo, lo + batch, device=self.device).clamp_(max=self.num_data - 1)
-            out.append(disc(self.real_batch(idx))[0])
+        out = [disc(x)[0] for x in self._sweep_batches(batch)]
         logits = torch.cat(out)[: self.num_data].double().cpu().numpy()
         self.logit_results.setdefault(f"{name}_eval", {})[step] = logits
 
@@ -336,20 +437,27 @@ class StyleGAN2Trainer:
         return cands[-1] if cands else None
 
     def load_ckpt(self, path):
-        """Restore weights, EMA, Adam moments, ada_aug_p and pl_mean; drs_d
-        falls back to d (a phase-1 checkpoint), and its optimizer stays fresh
-        unless the checkpoint has one. Returns the checkpoint's step."""
-        raw = torch.load(path, map_location="cpu", weights_only=True)
+        """Restore weights, EMA, Adam moments, ada_aug_p and pl_mean from the
+        port's own checkpoint, the JAX package's msgpack one or the
+        reference's `{iter:06d}.pt` (read_stylegan2_file). drs_d falls back
+        to d (a phase-1 checkpoint), and its optimizer stays fresh unless the
+        checkpoint has one; a reference file keeps fresh moments, a missing
+        g_ema falls back to g. Returns the checkpoint's step."""
+        raw = read_stylegan2_file(path)
         self.gen.load_state_dict(raw["g"])
         self.disc.load_state_dict(raw["d"])
-        self.g_ema.load_state_dict(raw["g_ema"])
-        load_moments(self.g_optim, raw["g_optim"])
-        load_moments(self.d_optim, raw["d_optim"])
+        self.g_ema.load_state_dict(raw.get("g_ema", raw["g"]))
+        for optim, key, module in ((self.g_optim, "g_optim", self.gen),
+                                   (self.d_optim, "d_optim", self.disc),
+                                   (self.drs_optim, "drs_d_optim", self.drs_disc)):
+            if optim is not None and key in raw:
+                if raw["format"] == "port":
+                    load_moments(optim, raw[key])
+                else:
+                    load_adam_moments(optim, module, raw[key])
         self.pl_mean = torch.tensor(float(raw.get("pl_mean", 0.0)), device=self.device)
         if self.drs_disc is not None:
             self.drs_disc.load_state_dict(raw.get("drs_d", raw["d"]))
-            if "drs_d_optim" in raw:
-                load_moments(self.drs_optim, raw["drs_d_optim"])
         self.ada_aug_p = float(raw.get("ada_aug_p", 0.0))
         if self.ada is not None:
             self.ada.ada_aug_p = self.ada_aug_p

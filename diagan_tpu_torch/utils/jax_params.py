@@ -1,5 +1,7 @@
 """Weight bridge: the JAX package's Flax StyleGAN2, SNGAN, InceptionV3 and
-small-classifier (models/convnets.py) variables -> the port's state_dicts.
+small-classifier (models/convnets.py) variables -> the port's state_dicts;
+the optax Adam state of the JAX StyleGAN2 trainer -> torch Adam moments; and
+the reference's (rosinality's) StyleGAN2 state_dicts -> the port's.
 
 Input is a Flax variable tree as nested dicts of numpy arrays (what
 `jax.device_get(variables["params"])` gives); this module never imports jax.
@@ -46,7 +48,25 @@ Layout conversions:
     bn_dec, their rows (and the per-feature BatchNorm's parameters and
     statistics) from the (H, W, C) reshape to the (C, H, W) one;
     decode/ConvTranspose_j -> tconvs.j, the last one tconv_out, each kernel
-    flipped in both spatial axes; decode/BatchNorm_j (j >= 1) -> tbns.{j-1}.
+    flipped in both spatial axes; decode/BatchNorm_j (j >= 1) -> tbns.{j-1};
+  - optax.adam's state {"0": {"count", "mu", "nu"}, "1": {}} (the
+    regularisation-ratio Adam of diagan_tpu/train/stylegan2_trainer.py):
+    mu and nu are trees of the params' shape and go through the params' own
+    rule (every rule is a permutation, so the moments map leaf for leaf);
+    count becomes each parameter's Adam step;
+  - the reference's StyleGAN2 (stylegan2/model.py of rosinality's port, its
+    `{iter:06d}.pt` files): its flat keys map to the port's names (style.i
+    -> mapping.layers.{i-1}; convs.{2j} / convs.{2j+1} / to_rgbs.j ->
+    conv_up_{r} / conv_{r} / to_rgb_{r}, r = 2**(j+3); D's convs.0 ->
+    from_rgb, convs.{b} -> blocks.{b-1}, final_linear.0 / .1 ->
+    final_linear / out_linear). The port keeps the reference's conv layouts,
+    the upsampling convs' kernels (which the JAX import flips) and D's (C,
+    H, W) flatten, so no array is permuted: modulated weights drop their
+    leading 1, noise weights and ToRGB biases are reshaped. The fixed blur
+    kernels and the noises.noise_i buffers are consumed with no
+    counterpart (the port recomputes the blurs and draws its noise); the
+    reference's bias-free ResBlock skip conv gets the zero bias the port's
+    layer carries. A key no rule knows raises.
 """
 from __future__ import annotations
 
@@ -94,7 +114,8 @@ def _convert(params, rule, what):
             continue
         if key in sd:
             raise ValueError(f"{what} bridge: two leaves map to {key}")
-        sd[key] = torch.tensor(np.ascontiguousarray(value))
+        # ascontiguousarray (flipped kernels) would make a 0-d leaf 1-d
+        sd[key] = torch.tensor(np.ascontiguousarray(value).reshape(np.shape(value)))
     return sd
 
 
@@ -562,3 +583,103 @@ def cae_state_dict(variables):
 
     tree = {"params": variables["params"], "batch_stats": variables["batch_stats"]}
     return _with_batches_tracked(_convert(tree, rule, "CAE"))
+
+
+# --- optax Adam state -> torch Adam moments ---------------------------------
+def optax_adam_moments(opt_state, bridge):
+    """{"count": int, "exp_avg": state_dict, "exp_avg_sq": state_dict} from
+    the msgpack-restored state of optax.adam (`{"0": {"count", "mu", "nu"},
+    "1": {}}`); `bridge` is the params' rule (generator_state_dict or
+    discriminator_state_dict)."""
+    if set(opt_state) != {"0", "1"} or opt_state["1"] or set(opt_state["0"]) != {
+            "count", "mu", "nu"}:
+        raise ValueError(f"not an optax.adam state: keys {sorted(opt_state)}")
+    adam = opt_state["0"]
+    return {"count": int(np.asarray(adam["count"])), "exp_avg": bridge(adam["mu"]),
+            "exp_avg_sq": bridge(adam["nu"])}
+
+
+# --- the reference's (rosinality's) StyleGAN2 -> the port ------------------
+def _reference_styled_leaf(rest, arr):
+    """(suffix, array) inside a reference StyledConv or ToRGB: None for an
+    unknown key, (None, None) for a buffer with no counterpart."""
+    if rest == "conv.weight":
+        return "conv.weight", arr[0]
+    if rest in ("conv.modulation.weight", "conv.modulation.bias"):
+        return rest, arr
+    if rest in ("conv.blur.kernel", "upsample.kernel"):
+        return None, None
+    if rest == "noise.weight":
+        return "noise.weight", arr.reshape(())
+    if rest == "activate.bias":
+        return "bias", arr
+    if rest == "bias":  # ToRGB's (1, 3, 1, 1)
+        return "bias", arr.reshape(-1)
+    return None
+
+
+def _reference_generator_rule(path, arr):
+    (key,) = path
+    m = re.fullmatch(r"style\.(\d+)\.(weight|bias)", key)
+    if m and int(m.group(1)) >= 1:  # style.0 is the parameter-free PixelNorm
+        return f"mapping.layers.{int(m.group(1)) - 1}.{m.group(2)}", arr
+    if key == "input.input":
+        return "synthesis.input", arr
+    if re.fullmatch(r"noises\.noise_\d+", key):
+        return None, None
+    m = re.fullmatch(r"(conv1|to_rgb1|convs\.(\d+)|to_rgbs\.(\d+))\.(.+)", key)
+    if m is None:
+        return None
+    if m.group(2) is not None:
+        k = int(m.group(2))
+        layer = f"{'conv_up' if k % 2 == 0 else 'conv'}_{2 ** (k // 2 + 3)}"
+    elif m.group(3) is not None:
+        layer = f"to_rgb_{2 ** (int(m.group(3)) + 3)}"
+    else:
+        layer = m.group(1)
+    rgb = layer.startswith("to_rgb")
+    if (m.group(4) in ("noise.weight", "activate.bias", "conv.blur.kernel") and rgb) or (
+            m.group(4) in ("bias", "upsample.kernel") and not rgb):
+        return None
+    hit = _reference_styled_leaf(m.group(4), arr)
+    if hit is None or hit[0] is None:
+        return hit
+    return f"synthesis.layers.{layer}.{hit[0]}", hit[1]
+
+
+def reference_generator_state_dict(sd):
+    """The reference's StyleGAN2 Generator state_dict -> the port generator's."""
+    return _convert(dict(sd), _reference_generator_rule, "reference generator")
+
+
+_REF_D_LAYER = {"conv1": {"0.weight": "conv.weight", "1.bias": "bias"},
+                "conv2": {"0.kernel": None, "1.weight": "conv.weight", "2.bias": "bias"},
+                "skip": {"0.kernel": None, "1.weight": "conv.weight"}}
+
+
+def _reference_discriminator_rule(path, arr):
+    (key,) = path
+    top = {"convs.0.0.weight": "from_rgb.conv.weight", "convs.0.1.bias": "from_rgb.bias",
+           "final_conv.0.weight": "final_conv.conv.weight",
+           "final_conv.1.bias": "final_conv.bias",
+           "final_linear.0.weight": "final_linear.weight",
+           "final_linear.0.bias": "final_linear.bias",
+           "final_linear.1.weight": "out_linear.weight", "final_linear.1.bias": "out_linear.bias"}
+    if key in top:
+        return top[key], arr
+    m = re.fullmatch(r"convs\.(\d+)\.(conv1|conv2|skip)\.(\d+\.\w+)", key)
+    if m is None or int(m.group(1)) < 1 or m.group(3) not in _REF_D_LAYER[m.group(2)]:
+        return None
+    name = _REF_D_LAYER[m.group(2)][m.group(3)]
+    if name is None:  # the fixed blur taps
+        return None, None
+    return f"blocks.{int(m.group(1)) - 1}.{m.group(2)}.{name}", arr
+
+
+def reference_discriminator_state_dict(sd):
+    """The reference's StyleGAN2 Discriminator state_dict -> the port
+    discriminator's, with the zero bias of each ResBlock's skip conv."""
+    out = _convert(dict(sd), _reference_discriminator_rule, "reference discriminator")
+    for key in [k for k in out if k.endswith(".skip.conv.weight")]:
+        out[key[: -len("weight")] + "bias"] = torch.zeros(out[key].shape[0])
+    return out
