@@ -76,10 +76,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      peak memory and a profile of one phase-1 step;
   8b. one fused SNGAN phase-2 step, card against CPU, injected draws;
   9. evaluation (random Inception weights, from a seed): 9a the FID
-     InceptionV3 card against CPU on 4 images; 9b cli.eval_gan_drs at its
-     full counts (FID 50k/50k, IS 50k, PR 10k/10k, DRS at batch 256) on the
-     SNGAN phase-2 run, KID 10k/10k, and cli.eval_gan_with_index against the
-     phase-1 logits, every score finite and no port kernel launched, with
+     InceptionV3 card against CPU on 4 images; 9b cli.eval_gan_drs with its
+     counts cut to EVAL_N (FID 10k/10k, IS 10k, PR 10k/10k, DRS at batch
+     256; the CLI's FID and IS counts are 50k) on the SNGAN phase-2 run, KID
+     10k/10k, and cli.eval_gan_with_index against the phase-1 logits (10k
+     fakes), every score finite and no port kernel launched, with
      the wall seconds of real features, fake generation, featurisation and
      sqrtm; 9c FID with DRS of the StyleGAN2-256 phase-2 checkpoint (the
      eps-jitter sqrtm), whose kernel A and fused-act launches join the
@@ -111,13 +112,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      step (twin D, GOLD), card against CPU, its fp32 gradients with the
      activations' sides of its float64 run;
  12. the CAE reconstruction-error protocol and the Inclusive GAN on phase
-     11's runs: colour phase 1 resumed to step 400, cli.train_cae (3 epochs
+     11's runs: colour phase 1 resumed to step 400, cli.train_cae (2 epochs
      of 50; the scripts' 50,000 generated images, through DRS for the
      phase-2 run) on both colour runs and the FMNIST run,
      cli.eval_ae_score --use_loss, cli.train_mimicry_inclusive for 4 steps
      at full DCGAN and Inception width (its construction registers the
-     10,000 real features and refreshes the nearest latents: 100,000
-     latents at 299 px) and cli.train_cae_inclusive; no port kernel may
+     10,000 real features and refreshes the nearest latents: 20,000
+     latents at 299 px, of the script's 100,000) and
+     cli.train_cae_inclusive; no port kernel may
      launch; images/s, CAE images/s, RE sweep ms, s per refresh, ms per
      Inclusive step, peak memory and a profile of one Inclusive step; 12b
      the CAE's forwards and the Inclusive hook with its G gradients, card
@@ -151,6 +153,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      (forwards, D loss, R1, G, path) card against the fp32 CPU run; 14d the
      bf16 instances A1-A3 and the fused act's kernels at the bf16 step's
      shapes against their plain versions, timed against their bounds.
+ 15. a reference run carried into the port, and the modules with no
+     caller: 15a phase 8's phase-1 files rewritten as the reference's
+     torch-mimicry files (no update_count) and cli.train_mimicry_phase2 from
+     them for 4 steps at full width (the global step the files', every net's
+     first update at lr0 from fresh Adam, as the JAX package's
+     import_torch_net; no port kernel), the same weights as bare
+     state_dicts through load_eval_models and DRS; 15b
+     ModulatedConv(downsample=True) at 512 channels, 64 -> 32 px, batch 16,
+     k = 3 and 1, card against CPU, its blur on A1 (launched, and held
+     against its plain version); 15c cli.validate_weights with seeded random
+     Inception (pytorch-fid's layout), VGG16 (torchvision's) and lpips-head
+     files, every stage passing, then LPIPS card against CPU at 64 and 256
+     px; 15d the by-index loaders on phase 10's CelebA (2,048 indices) equal
+     to the plain gather, and their features on the card equal.
 Each phase prints its start, in seconds since the script started.
 The last lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a card it exits 2 and prints no result.
@@ -158,6 +174,7 @@ The last lines are the kernels' JSON, the nvidia-smi line and
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -1885,12 +1902,26 @@ def sngan_step_card_vs_cpu(dev, smi, size=32):
 
 
 EVAL_STEP, EVAL_P1_STEP, EVAL_SCORE = 40, 30, "ldr_conf_1.0_ratio_50"  # phase 8's runs
-# the JSONs of phase 9b: cli.eval_gan_drs's counts (FID 50k/50k, IS 50k, PR
-# 10k/10k), KID at 10k/10k, and cli.eval_gan_with_index's FID of the 100
-# highest- and lowest-scored reals against 50k fakes
-EVAL_JSON = ("fid_50k_50k.json", "inception_score_50k.json", "pr_10k_10k.json",
-             "kid_10k_10k.json", f"fid_high_{EVAL_SCORE}_0k_50k.json",
-             f"fid_low_{EVAL_SCORE}_0k_50k.json")
+# phase 9b's sample counts: the eval CLIs' are at most EVAL_N (a depth cut of
+# the CLIs' FID and IS counts of 50,000, to keep the script inside its limit)
+EVAL_N = 10000
+# the JSONs of phase 9b: cli.eval_gan_drs's counts (FID, IS, PR), KID at
+# 10k/10k, and cli.eval_gan_with_index's FID of the 100 highest- and
+# lowest-scored reals against EVAL_N fakes
+EVAL_JSON = (f"fid_{EVAL_N // 1000}k_{EVAL_N // 1000}k.json",
+             f"inception_score_{EVAL_N // 1000}k.json", "pr_10k_10k.json", "kid_10k_10k.json",
+             f"fid_high_{EVAL_SCORE}_0k_{EVAL_N // 1000}k.json",
+             f"fid_low_{EVAL_SCORE}_0k_{EVAL_N // 1000}k.json")
+
+
+def capped_counts(evaluate):
+    """evaluate_checkpoint with its sample counts cut to at most EVAL_N."""
+    def run(metric, *args, num_real_samples=None, num_fake_samples=None, **kwargs):
+        counts = {k: min(n, EVAL_N) for k, n in (("num_real_samples", num_real_samples),
+                                                  ("num_fake_samples", num_fake_samples))
+                  if n is not None}
+        return evaluate(metric, *args, **counts, **kwargs)
+    return run
 
 
 def inception_card_vs_cpu(dev, smi):
@@ -1976,17 +2007,18 @@ class PartTimer:
 
 
 def eval_path(dev, smi, work):
-    """9b and 9c. 9b: SNGAN-32 evaluation at full counts on phase 8's runs:
-    cli.eval_gan_drs on the phase-2 run (step 40; FID 50k/50k, IS 50k, PR
-    10k/10k, DRS at batch 256) and its 50k synthetic CIFAR-format set, KID at
-    10k/10k reusing PR's cached 10k DRS fakes, and cli.eval_gan_with_index
-    against the phase-1 logits (--p1_step 30); no port kernel may launch.
+    """9b and 9c. 9b: SNGAN-32 evaluation on phase 8's runs, the CLIs'
+    counts cut to EVAL_N: cli.eval_gan_drs on the phase-2 run (step 40; FID
+    10k/10k, IS 10k, PR 10k/10k, DRS at batch 256) and its 50k synthetic
+    CIFAR-format set, KID at 10k/10k reusing PR's cached 10k DRS fakes, and
+    cli.eval_gan_with_index against the phase-1 logits (--p1_step 30); no
+    port kernel may launch.
     9c: evaluate_checkpoint("fid") of phase 6's StyleGAN2-256 phase-2
     checkpoint with DRS against its 512 training images (512 real, 256 fake
     samples of 2048-d features: a singular covariance, the eps-jitter sqrtm),
     which launches kernel A and the fused bias-LeakyReLU. Returns 9c's
     (launches, kernel A launches by instance)."""
-    from diagan_tpu_torch.cli import eval_gan_drs, eval_gan_with_index
+    from diagan_tpu_torch.cli import eval_gan, eval_gan_drs, eval_gan_with_index
     from diagan_tpu_torch.data.predefined import get_predefined_dataset
     from diagan_tpu_torch.eval.evaluate import evaluate_checkpoint
     from diagan_tpu_torch.eval.inception import InceptionFeaturizer
@@ -2000,21 +2032,26 @@ def eval_path(dev, smi, work):
     def run(what, fn):
         _build.reset_launches()
         t0 = time.perf_counter()
-        with PartTimer() as timer:
+        with PartTimer() as timer, \
+                mock.patch.object(eval_gan, "evaluate_checkpoint",
+                                  capped_counts(eval_gan.evaluate_checkpoint)), \
+                mock.patch.object(eval_gan_with_index, "evaluate_checkpoint",
+                                  capped_counts(eval_gan_with_index.evaluate_checkpoint)):
             out = fn()
         wall = time.perf_counter() - t0
         no_kernel_launched(what)
         timer.report(what, wall, smi)
         return out
 
-    run("cli.eval_gan_drs (FID 50k/50k, IS 50k, PR 10k/10k, DRS batch 256)",
+    n = f"{EVAL_N // 1000}k"
+    run(f"cli.eval_gan_drs (FID {n}/{n}, IS {n}, PR 10k/10k, DRS batch 256)",
         lambda: eval_gan_drs.main(common))
     real = get_predefined_dataset("cifar10", str(data)).images
     run("evaluate_checkpoint kid 10k/10k (DRS, PR's cached fakes)", lambda: evaluate_checkpoint(
         "kid", get_gan_model("cifar10", drs=True, device=dev), sngan / "p2", EVAL_STEP,
         real_images=real, num_real_samples=10000, num_fake_samples=10000, use_drs=True,
         featurizer=InceptionFeaturizer(batch_size=128, device=dev), device=dev))
-    run("cli.eval_gan_with_index (FID of 100 high / 100 low reals against 50k fakes)",
+    run(f"cli.eval_gan_with_index (FID of 100 high / 100 low reals against {n} fakes)",
         lambda: eval_gan_with_index.main(common + [
             "--baseline_exp_name", "p1", "--p1_step", str(EVAL_P1_STEP),
             "--resample_score", EVAL_SCORE]))
@@ -2670,7 +2707,9 @@ def dcgan_step_card_vs_cpu(dev, smi):
           f"free: {fmt(free)} [{smi}]")
 
 
-CAE_EPOCHS, INCL_STEPS = 3, 4  # depth cuts: the scripts' 50 CAE epochs, 20,000 steps
+# depth cuts: the scripts' 50 CAE epochs, 20,000 Inclusive steps and 10 latents
+# per real image in a refresh
+CAE_EPOCHS, INCL_STEPS, INCL_LATENT_FACTOR = 2, 4, 2
 CAE_GEN = 50000  # the CAE scripts' generated images (generate_dataset's count)
 
 
@@ -2685,11 +2724,12 @@ def cae_inclusive_path(dev, smi, work):
     (its CSV); cli.train_cae -d mnist_fmnist on phase 11's FMNIST run (CAE32,
     nc 1); cli.train_mimicry_inclusive at full DCGAN and full Inception width
     on the 10,000 Colored-MNIST images for INCL_STEPS steps (its construction
-    registers the real features and refreshes the nearest latents: 100,000
-    latents through G and the Inception at 299); cli.train_cae_inclusive on
-    its checkpoint. Cuts (depth only): CAE_EPOCHS CAE epochs of the scripts'
-    50, INCL_STEPS Inclusive steps of 20,000 (the refresh every 3120 steps is
-    not reached after construction). No port kernel may launch. Readings:
+    registers the real features and refreshes the nearest latents:
+    INCL_LATENT_FACTOR x 10,000 latents through G and the Inception at 299);
+    cli.train_cae_inclusive on its checkpoint. Cuts (depth only): CAE_EPOCHS
+    CAE epochs of the scripts' 50, INCL_STEPS Inclusive steps of 20,000 (the
+    refresh every 3120 steps is not reached after construction), a refresh
+    of 20,000 latents where the script draws 100,000. No port kernel may launch. Readings:
     generated images/s, CAE train images/s, ms per RE sweep of 10,000,
     Inclusive ms per step beside the plain DCGAN step's, s per refresh, s to
     register the real features, the eval_ae_score rows, peak memory, the
@@ -2745,7 +2785,9 @@ def cae_inclusive_path(dev, smi, work):
                 timed(cae_protocol, "reconstruction_errors", sweeps), \
                 timed(DRS, "generate_images", draws), \
                 timed(InceptionFeaturizer, "features", feats), \
-                timed(InclusiveTrainer, "refresh_nearest_latents", refreshes):
+                timed(InclusiveTrainer, "refresh_nearest_latents", refreshes), \
+                mock.patch.object(InclusiveTrainer, "__init__", functools.partialmethod(
+                    InclusiveTrainer.__init__, latent_factor=INCL_LATENT_FACTOR)):
             base = drive("colour phase 1 resumed", lambda: train_mimicry_color_mnist_phase1.main(
                 common + ["-r", str(colour), "--num_steps", str(MNIST_P2), "--logit_save_steps",
                           "100", "--auto_resume"]))
@@ -2812,7 +2854,8 @@ def cae_inclusive_path(dev, smi, work):
           f"seed {SEED}): {[(r[2], *map(float, r[3:])) for r in rows]} [{smi}]")
     (_, t_feats), = feats
     print(f"Inclusive: real features of {MNIST_N} images (Inception at 299, batch 100) "
-          f"{t_feats:.3f} s; nearest-latent refresh ({10 * MNIST_N} latents, chunks of 500) "
+          f"{t_feats:.3f} s; nearest-latent refresh ({INCL_LATENT_FACTOR * MNIST_N} latents, "
+          f"chunks of 500) "
           f"{[round(t, 3) for _, t in refreshes]} s; metrics {m} [{smi}]")
     incl_sps = steps_per_s(incl, INCL_STEPS + 1, dev, 5)
     plain_sps = steps_per_s(base, MNIST_P2 + 1, dev, 20)
@@ -3811,6 +3854,258 @@ def time_bf16_kernels(dev, rng, ch, k4, smi, runs):
     return kernels
 
 
+def stock_spectral_names(sd):
+    """A mimicry state_dict as torch.nn.utils.spectral_norm saves it (the
+    reference's torch-mimicry files): weight_orig, weight_u and weight_v."""
+    out = {}
+    for key, t in sd.items():
+        if key.endswith(".weight_u"):
+            w = sd[key[: -len("_u")]].reshape(len(t), -1)
+            v = w.t() @ t
+            out[key[: -len("_u")] + "_v"] = v / v.norm()
+            out[key] = t
+        elif key.endswith(".weight") and key + "_u" in sd:
+            out[key + "_orig"] = t
+        else:
+            out[key] = t
+    return out
+
+
+CARRY_P1, CARRY_STEPS = 30, 4  # phase 8's phase-1 step; phase-2 steps from the reference files
+
+
+def carried_run_path(dev, smi, work):
+    """15a. Phase 8's SNGAN-32 phase-1 netG / netD rewritten as the reference
+    writes them (torch-mimicry's save_checkpoint wrapper, stock spectral-norm
+    names, no update_count) and cli.train_mimicry_phase2 from them for
+    CARRY_STEPS steps at full width (ngf 256, ndf 128, batch 64, n_dis 5):
+    the global step is the files' global_step and each net's first update
+    runs at lr0 from fresh Adam moments (the JAX package's import_torch_net
+    rule); no port kernel may launch. Then the same weights as bare
+    state_dicts through load_eval_models and DRS at batch 256."""
+    from diagan_tpu_torch.cli import train_mimicry_phase2
+    from diagan_tpu_torch.eval.drs import DRS
+    from diagan_tpu_torch.eval.evaluate import load_eval_models, make_disc_fn, make_gen_fn
+    from diagan_tpu_torch.models.registry import get_gan_model
+    from diagan_tpu_torch.ops import _build
+    from diagan_tpu_torch.train.checkpoint import ckpt_path
+    from diagan_tpu_torch.train.state import NetState
+
+    sngan = work / "sngan"
+    ref, bare = sngan / "ref_p1", sngan / "bare"
+    for name, bare_name in (("netG", "netG"), ("netD", "netD_drs")):
+        raw = torch.load(ckpt_path(sngan / "p1" / "checkpoints", name, CARRY_P1),
+                         map_location="cpu", weights_only=True)
+        for root, key, payload in (
+                (ref, name, {"model_state_dict": stock_spectral_names(raw["model_state_dict"]),
+                             "optimizer_state_dict": raw["optimizer_state_dict"],
+                             "global_step": CARRY_P1}),
+                (bare, bare_name, raw["model_state_dict"])):
+            path = ckpt_path(root / "checkpoints", key, CARRY_P1)
+            path.parent.mkdir(parents=True, exist_ok=True)
+            torch.save(payload, path)
+    shutil.copy(sngan / "p1" / "logits_netD_eval.pkl", ref / "logits_netD_eval.pkl")
+
+    first = {}  # each net's first update: (lr, update count, step)
+    apply_update = NetState.apply_update
+
+    def recording_update(net):
+        first.setdefault(id(net), (net.schedule(net.count), net.count, net.step))
+        apply_update(net)
+
+    num_steps = CARRY_P1 + CARRY_STEPS
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(NetState, "apply_update", recording_update):
+        tr = train_mimicry_phase2.main([
+            "-r", str(sngan / "cifar10"), "--work_dir", str(sngan), "--device", dev.type,
+            "--batch_size", str(SNGAN_BS), "--n_dis", str(SNGAN_NDIS), "--seed", str(SEED),
+            "--exp_name", "ref_p2", "--baseline_exp_name", "ref_p1", "--p1_step",
+            str(CARRY_P1), "--num_steps", str(num_steps), "--resample_score",
+            "ldr_conf_1.0_ratio_50"])
+    torch.cuda.synchronize()
+    t_p2 = time.perf_counter() - t0
+    no_kernel_launched("train_mimicry_phase2 from reference files")
+    check(tr.global_step == num_steps, f"resumed run ended at step {tr.global_step}")
+    for label, net, ups in (("G", tr.g, 1), ("D", tr.d, SNGAN_NDIS),
+                            ("D_drs", tr.d_drs, SNGAN_NDIS)):
+        lr, count, step = first[id(net)]
+        lr0 = tr.bundle.opt_g.lr if label == "G" else tr.bundle.opt_d.lr
+        check(count == 0 and step == CARRY_P1 and lr == lr0,
+              f"{label}'s first resumed update: lr {lr}, count {count}, step {step}")
+        check(net.count == CARRY_STEPS * ups and net.step == CARRY_P1 + CARRY_STEPS * ups,
+              f"{label} after the run: count {net.count}, step {net.step}")
+    ref_lr = tr.bundle.opt_g.lr * (1 - CARRY_P1 / num_steps)
+    print(f"train_mimicry_phase2 from torch-mimicry files (global_step {CARRY_P1}, no "
+          f"update_count): {CARRY_STEPS} steps in {t_p2:.2f} s, global step {CARRY_P1} -> "
+          f"{tr.global_step}; every net's first update at lr0 {tr.bundle.opt_g.lr} from fresh "
+          f"Adam (the JAX package's rule; the reference's own phase 2 would use "
+          f"{ref_lr:.6g}); metrics {finite_metrics(tr, ('errD', 'errG', 'errD_drs'))}; no port "
+          f"kernel launched")
+    print(f"phase 2 from reference files: {steps_per_s(tr, num_steps, dev, n=4):.2f} steps/s "
+          f"(host clock, 4 synchronised steps) [{smi}]")
+    del tr
+
+    _build.reset_launches()
+    gen, disc = load_eval_models(get_gan_model("cifar10", drs=True, device=dev), bare,
+                                 CARRY_P1, use_drs=True)
+    want_g, want_d = load_eval_models(get_gan_model("cifar10", drs=True, device=dev),
+                                      sngan / "p1", CARRY_P1, use_drs=True,
+                                      use_original_netD=True)
+    for got, want in ((gen, want_g), (disc, want_d)):
+        for key, t in want.state_dict().items():
+            check(torch.equal(got.state_dict()[key], t), f"bare state_dict load differs at {key}")
+    t0 = time.perf_counter()
+    drs = DRS(make_gen_fn(gen), make_disc_fn(disc), 128,
+              generator=torch.Generator(dev).manual_seed(SEED + 15), batch_size=256, device=dev)
+    accepted = drs.generate_images(1024)
+    t_drs = time.perf_counter() - t0
+    no_kernel_launched("load_eval_models and DRS from bare state_dicts")
+    check(accepted.shape == (1024, 32, 32, 3) and np.isfinite(accepted).all(),
+          "DRS from bare state_dicts")
+    print(f"load_eval_models of bare state_dicts: the phase-1 weights exactly; DRS batch 256 "
+          f"(warm-up included) 1024 accepted of {drs.proposed} in {t_drs:.2f} s; no port kernel "
+          f"launched [{smi}]")
+
+
+def downsample_conv_path(dev, smi):
+    """15b. ModulatedConv(downsample=True) at StyleGAN2-256's widths (512
+    channels, style 512, 64 -> 32 px, batch 16), k = 3 and 1: its blur runs
+    kernel A's fir4x4 instance (A1), which must launch (and the generic
+    instance not); card against CPU at 1e-3 x max(1, max|out|), TF32 off; A1
+    on the blur's input against its plain version at kernel A's fp32
+    tolerance; ms per forward. Returns the forwards' launches (per kernel,
+    and kernel A's per instance)."""
+    from diagan_tpu_torch.models.stylegan2 import ModulatedConv
+    from diagan_tpu_torch.ops import _build, upfirdn2d, upfirdn2d_plain
+
+    launches, fir = {}, {}
+    for k in (3, 1):
+        torch.manual_seed(SEED + 15 + k)
+        conv = ModulatedConv(512, 512, STYLE_DIM, k, downsample=True, device=dev)
+        cpu = ModulatedConv(512, 512, STYLE_DIM, k, downsample=True, device="cpu")
+        cpu.load_state_dict({n: t.cpu() for n, t in conv.state_dict().items()})
+        g = torch.Generator(dev).manual_seed(SEED + 15 + k)
+        x = torch.randn((16, 512, 64, 64), generator=g, device=dev)
+        s = torch.randn((16, STYLE_DIM), generator=g, device=dev)
+        with torch.no_grad():
+            _build.reset_launches()
+            y = conv(x, s)
+            torch.cuda.synchronize()
+            for name, n in _build.LAUNCHES.items():
+                launches[name] = launches.get(name, 0) + n
+            for inst, n in _build.FIR_INSTANCES.items():
+                fir[inst] = fir.get(inst, 0) + n
+            check(_build.FIR_INSTANCES["fir4x4"] > 0 and _build.FIR_INSTANCES["generic"] == 0,
+                  f"downsample k={k} launched {dict(_build.FIR_INSTANCES)}")
+            y_cpu = cpu(x.cpu(), s.cpu())
+            err, scale = max_err(y.cpu(), y_cpu), y_cpu.abs().max().item()
+            check(y.shape == (16, 512, 32, 32) and err <= 1e-3 * max(1.0, scale),
+                  f"downsample k={k} card vs CPU err {err} (max|out| {scale})")
+            xs = (x * conv.modulation(s)[:, :, None, None]).contiguous()
+            a1 = upfirdn2d(xs, conv.blur.kernel, pad=conv.blur.pad)
+            plain = upfirdn2d_plain(xs, conv.blur.kernel, pad=conv.blur.pad)
+            a1_err = max_err(a1, plain)
+            check(a1_err <= 1e-5 * plain.abs().max().item(), f"A1 k={k} vs plain err {a1_err}")
+            ms = cuda_ms(lambda: conv(x, s))
+        print(f"ModulatedConv(downsample=True) k={k} 512 -> 512 ch, 64 -> 32 px, batch 16, fp32: "
+              f"{ms:.3f} ms; card vs CPU max abs err {err:.3e} (max|out| {scale:.3e}); A1 on "
+              f"its {tuple(xs.shape)} input pad {conv.blur.pad} vs plain {a1_err:.3e} [{smi}]")
+    print(f"15b launches: {launches}; kernel A by instance {fir}")
+    return launches, fir
+
+
+def write_vgg16(path, seed):
+    """Seeded random VGG16 weights in torchvision's layout
+    (features.{i}.weight / bias, and a small classifier that the loaders
+    skip)."""
+    g = torch.Generator().manual_seed(seed)
+    sd, cin = {}, 3
+    for i, cout in zip((0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28),
+                       (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512)):
+        sd[f"features.{i}.weight"] = torch.randn((cout, cin, 3, 3), generator=g) / (9 * cin) ** 0.5
+        sd[f"features.{i}.bias"] = 0.01 * torch.randn(cout, generator=g)
+        cin = cout
+    for i in (0, 3, 6):
+        sd[f"classifier.{i}.weight"] = torch.randn((4, 4), generator=g)
+        sd[f"classifier.{i}.bias"] = torch.randn(4, generator=g)
+    torch.save(sd, path)
+    return path
+
+
+def weights_gate_path(dev, smi, work):
+    """15c. cli.validate_weights on the card with seeded random files: an
+    InceptionV3 state_dict in pytorch-fid's layout, VGG16 in torchvision's
+    and the lpips heads (lin{i}.model.1.weight); every stage must pass.
+    Then LPIPS with those files, card against CPU at 1e-4 relative at 64 and
+    256 px, batch 16, d(x, x) = 0, and ms per batch. Returns the Inception
+    file."""
+    from diagan_tpu_torch.cli import validate_weights
+    from diagan_tpu_torch.eval.inception import InceptionV3, random_init_
+    from diagan_tpu_torch.eval.lpips import LPIPS
+    from diagan_tpu_torch.ops import _build
+
+    work.mkdir(parents=True, exist_ok=True)
+    fid = work / "pt_inception.pth"
+    torch.save(random_init_(InceptionV3(device="cpu"), seed=SEED + 15).state_dict(), fid)
+    vgg = write_vgg16(work / "vgg16.pth", SEED + 16)
+    g = torch.Generator().manual_seed(SEED + 17)
+    lins = work / "lpips_lin.pth"
+    torch.save({f"lin{i}.model.1.weight": torch.rand((1, c, 1, 1), generator=g)
+                for i, c in enumerate((64, 128, 256, 512, 512))}, lins)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rc = validate_weights.main(["--inception", str(fid), "--lpips_vgg", str(vgg),
+                                "--lpips_lin", str(lins), "--device", dev.type])
+    t_gate = time.perf_counter() - t0
+    check(rc == 0, "cli.validate_weights failed a stage")
+    no_kernel_launched("cli.validate_weights")
+    print(f"cli.validate_weights: every stage passed in {t_gate:.2f} s")
+
+    lp, lp_cpu = LPIPS(vgg, lins, device=dev), LPIPS(vgg, lins, device="cpu")
+    for size in (64, 256):
+        x = torch.rand((16, 3, size, size), generator=g) * 2 - 1
+        y = torch.rand((16, 3, size, size), generator=g) * 2 - 1
+        xd, yd = x.to(dev), y.to(dev)
+        d_card, d_cpu = lp(xd, yd).cpu(), lp_cpu(x, y)
+        rel = ((d_card - d_cpu).abs().max() / d_cpu.abs().max()).item()
+        check(rel <= 1e-4, f"LPIPS {size} px card vs CPU rel err {rel}")
+        check(bool((lp(xd, xd) == 0).all()), f"LPIPS {size} px d(x, x) != 0")
+        ms = cuda_ms(lambda: lp(xd, yd), iters=5)
+        print(f"LPIPS (VGG16 + heads) batch 16 at {size} px: {ms:.2f} ms per batch; card vs "
+              f"CPU rel err {rel:.3e}; d(x, x) = 0 [{smi}]")
+    return fid
+
+
+def index_loader_path(dev, smi, work, fid):
+    """15d. data/index_loader.py on phase 10's CelebA (202,599 images,
+    celeba_64.npy): get_celeba_images_with_index and get_index_images on
+    2,048 indices against the plain CPU gather (bytes), and the featurizer
+    on the card on both (features equal)."""
+    from diagan_tpu_torch.data.index_loader import get_celeba_images_with_index, get_index_images
+    from diagan_tpu_torch.eval.inception import InceptionFeaturizer
+
+    cache = np.load(work / "celeba" / "celeba" / "celeba_64.npy", mmap_mode="r")
+    index = np.random.default_rng(SEED + 15).choice(len(cache), 2048, replace=False)
+    want = np.ascontiguousarray(cache[index])
+    t0 = time.perf_counter()
+    got = get_celeba_images_with_index(index, root=work / "celeba", size=64)
+    t_load = time.perf_counter() - t0
+    check(got.dtype == np.uint8 and got.shape == (2048, 64, 64, 3) and
+          got.tobytes() == want.tobytes(), "get_celeba_images_with_index differs from the gather")
+    check(get_index_images(cache, index).tobytes() == want.tobytes(),
+          "get_index_images differs from the gather")
+    feat = InceptionFeaturizer(weights_path=str(fid), batch_size=256, device=dev)
+    t0 = time.perf_counter()
+    f_got = feat.features(got)
+    t_feat = time.perf_counter() - t0
+    check(np.array_equal(f_got, feat.features(want)) and np.isfinite(f_got).all(),
+          "features of the loaded images differ from the gather's")
+    print(f"index_loader on {len(cache)} CelebA images: 2048 by index in {t_load:.2f} s (the "
+          f"loader reads the whole cache), equal to the gather; featurized on the card in "
+          f"{t_feat:.2f} s, features equal [{smi}]")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -4118,7 +4413,7 @@ def main(argv=None):
     held = torch.cuda.memory_allocated()  # what earlier phases still hold
     phase("9a. Inception, card against CPU")
     inception_card_vs_cpu(dev, smi)
-    phase("9b/9c. evaluation: SNGAN-32 at full counts, StyleGAN2-256 with DRS")
+    phase("9b/9c. evaluation: SNGAN-32 at 10k counts, StyleGAN2-256 with DRS")
     eval_launches, eval_fir = eval_path(dev, smi, work)
     for k in kernels:
         if k["name"] in eval_launches:
@@ -4177,6 +4472,22 @@ def main(argv=None):
     bf16_train_step_card_vs_cpu(dev, smi, work / "bf16_grads")
     phase("14d. the bf16 kernels at the bf16 step's shapes")
     kernels += time_bf16_kernels(dev, rng_b, ch, k4, smi, flag_runs)
+
+    # 15. a reference run carried into the port; the modules with no caller
+    phase("15a. a reference-format phase-1 run resumed through cli.train_mimicry_phase2")
+    carried_run_path(dev, smi, work)
+    phase("15b. ModulatedConv(downsample=True) at StyleGAN2-256 widths")
+    down_launches, down_fir = downsample_conv_path(dev, smi)
+    for k in kernels:  # phase 15b's launches join the fp32 rows
+        name = k["name"]
+        if name in down_launches:
+            k["launches"] += down_launches[name]
+        elif name.startswith("upfirdn2d/"):
+            k["launches"] += down_fir[name.split("/", 1)[1]]
+    phase("15c. cli.validate_weights; LPIPS card against CPU")
+    fid = weights_gate_path(dev, smi, work / "weights")
+    phase("15d. the by-index loaders on phase 10's CelebA")
+    index_loader_path(dev, smi, work, fid)
 
     shutil.rmtree(work, ignore_errors=True)
     phase("done")

@@ -10,7 +10,8 @@ The argparse surface of the JAX package's count_attr_celeba.py, plus
 own netD), at batch 256; turns them to uint8 by clip((x + 1) * 127.5, 0,
 255) and truncation, as the JAX package does; classifies them with
 {work_dir}/attr_classifier/{attr}.pth (cli.train_convnet_celeba's torch
-state_dict) at --batch_size; writes count_attr_{attr}{_drs}.json under the
+state_dict, or the JAX package's Flax bytes: train/classifier.py
+load_classifier) at --batch_size; writes count_attr_{attr}{_drs}.json under the
 run. --classifier, --gpu and --netG_train_mode are accepted and ignored.
 """
 from __future__ import annotations
@@ -20,14 +21,13 @@ import json
 from pathlib import Path
 
 import numpy as np
-import torch
 
 from diagan_tpu_torch.device import resolve_device
 from diagan_tpu_torch.eval.drs import DRS
 from diagan_tpu_torch.eval.evaluate import Sampler, load_eval_models, make_disc_fn, make_gen_fn
 from diagan_tpu_torch.models.convnets import AttrClassifier
 from diagan_tpu_torch.models.registry import get_gan_model
-from diagan_tpu_torch.train.classifier import predict_classifier
+from diagan_tpu_torch.train.classifier import load_classifier, predict_classifier
 from diagan_tpu_torch.utils import set_seed
 
 
@@ -79,7 +79,7 @@ def main(argv=None):
     if not clf_path.is_file():
         raise FileNotFoundError(f"train the classifier first: {clf_path}")
     model = AttrClassifier(num_attrs=2, device=device)
-    model.load_state_dict(torch.load(clf_path, map_location=device, weights_only=True))
+    load_classifier(model, clf_path)
 
     imgs = sampler.generate_images(args.num_samples)
     imgs_u8 = np.clip((imgs + 1) * 127.5, 0, 255).astype(np.uint8)

@@ -11,7 +11,10 @@ The argparse surface of the JAX package's train_mimicry_phase2.py, plus
 steps before --p1_step, floors the weights at 1e-6, restores G and D from
 the phase-1 checkpoints, starts netD_drs from netD's phase-1 file (weights,
 Adam state and update count), turns GOLD on from --p1_step, and trains on
-to --num_steps without recording logits.
+to --num_steps without recording logits. The phase-1 files may be the
+port's, the JAX package's or the reference's (train/checkpoint.py
+restore_net: from a reference file Adam and the lr schedule start afresh, as
+in the JAX package).
 """
 from __future__ import annotations
 

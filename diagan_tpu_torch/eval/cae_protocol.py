@@ -18,7 +18,7 @@ steps * batch_size (drop-last); every train-mode forward moves the CAE's
 BatchNorm statistics; the sweep runs batches of 256. The CAE's initial
 weights are the module's own (models/cae.py draws them from its seed);
 `cae_epoch-{e}.pth` is the CAE's torch state_dict (the JAX package writes
-Flax bytes of {params, batch_stats}).
+Flax bytes of {params, batch_stats}); load_cae reads either.
 """
 from __future__ import annotations
 
@@ -28,6 +28,17 @@ import numpy as np
 import torch
 
 from diagan_tpu_torch.data.generated import save_generated
+from diagan_tpu_torch.train.checkpoint import read_state_dict
+from diagan_tpu_torch.utils.jax_params import cae_state_dict
+
+
+def load_cae(cae, path):
+    """Load a `cae_epoch-{e}.pth` into `cae` (a models/cae.py module), on its
+    device: the port's torch state_dict, or the JAX package's Flax bytes of
+    {params, batch_stats} through utils/jax_params.py cae_state_dict.
+    Returns the module."""
+    cae.load_state_dict(read_state_dict(path, cae_state_dict))
+    return cae
 
 
 def make_cae_optimizer(params, lr=1e-3, eps=1e-7, weight_decay=5e-4):

@@ -102,9 +102,12 @@ def load_eval_models(bundle, log_dir, evaluate_step, use_drs=False, use_original
     """Load G (and the DRS discriminator) of a run at a step into the
     bundle's modules, in eval mode. Returns (gen, disc or None).
 
-    SNGAN runs: netG, and with use_drs netD_drs, or netD with
-    use_original_netD (a phase-1 model's own D under DRS, reference
-    eval_gan_drs.py:28), from log_dir/checkpoints or netD_ckpt_dir.
+    SNGAN runs (and the MNIST DCGAN's, the toy's): netG, and with use_drs
+    netD_drs, or netD with use_original_netD (a phase-1 model's own D under
+    DRS, reference eval_gan_drs.py:28), from log_dir/checkpoints or
+    netD_ckpt_dir, each the port's, the JAX package's or the reference's
+    file (train/checkpoint.py load_weights: weights and buffers only, as the
+    JAX package's params_only restore).
     StyleGAN2 runs: g_ema, and with use_drs drs_d (falling back to d), from
     log_dir/checkpoint/{step:06d}.pt."""
     log_dir = Path(log_dir)

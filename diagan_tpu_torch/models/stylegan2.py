@@ -120,12 +120,17 @@ class Blur(nn.Module):
 
 
 class ModulatedConv(nn.Module):
-    """Style-modulated conv with optional demodulation and x2 upsampling
-    (reference model.py ModulatedConv2d). Weight (O, I, k, k); the upsampling
-    form hands it to conv_transpose2d as (I, O, k, k)."""
+    """Style-modulated conv with optional demodulation and x2 up- or
+    downsampling (reference model.py ModulatedConv2d). Weight (O, I, k, k);
+    the upsampling form hands it to conv_transpose2d as (I, O, k, k). The
+    downsampling form (no caller in either package) is the JAX package's
+    unfolded one: the blur with pad ((p + 1) // 2, p // 2), p = len(blur) - 2 +
+    k - 1, through kernel A (ops/upfirdn2d.py), then a stride-2 VALID conv.
+    The JAX package folds that blur into the conv's kernel by default
+    (_fold_blur_enabled): the same function, another rounding."""
 
     def __init__(self, in_features, features, style_dim, kernel_size=3,
-                 demodulate=True, upsample=False, blur_kernel=BLUR_KERNEL,
+                 demodulate=True, upsample=False, downsample=False, blur_kernel=BLUR_KERNEL,
                  dtype=torch.float32, device="cuda"):
         super().__init__()
         self.weight = _normal((features, in_features, kernel_size, kernel_size), device)
@@ -134,11 +139,15 @@ class ModulatedConv(nn.Module):
         self.kernel_size = kernel_size
         self.demodulate = demodulate
         self.upsample = upsample
+        self.downsample = downsample and not upsample
         self.dtype = dtype
         if upsample:
             p = (len(blur_kernel) - 2) - (kernel_size - 1)
             self.blur = Blur(blur_kernel, pad=((p + 1) // 2 + 1, p // 2 + 1),
                              upsample_factor=2, device=device)
+        elif downsample:
+            p = (len(blur_kernel) - 2) + (kernel_size - 1)
+            self.blur = Blur(blur_kernel, pad=((p + 1) // 2, p // 2), device=device)
 
     def forward(self, x, style):
         s = self.modulation(style).float()  # (N, I)
@@ -153,6 +162,8 @@ class ModulatedConv(nn.Module):
         if self.upsample:
             # transposed conv x2 (out = 2*in + k - 2), then the blur
             y = self.blur(F.conv_transpose2d(xs, w.transpose(0, 1), stride=2))
+        elif self.downsample:
+            y = F.conv2d(self.blur(xs), w, stride=2)
         else:
             y = F.conv2d(xs, w, padding=self.kernel_size // 2)
         if self.demodulate:

@@ -16,7 +16,8 @@ The JAX package hands one dropout key, unchanged, to every step
 dropout mask; the port keeps that: one keep mask per run, drawn from a
 torch.Generator seeded from `seed` (or given as `dropout_mask`), on every
 step. Checkpoints are torch state_dicts under the JAX package's file names;
-neither package reads the other's.
+`load_classifier` reads either package's (the JAX package writes Flax bytes of
+{params, batch_stats}).
 """
 from __future__ import annotations
 
@@ -26,7 +27,25 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from diagan_tpu_torch.models.convnets import AttrClassifier
+from diagan_tpu_torch.models.convnets import AttrClassifier, Simple3DNet, SimpleConvNet, SimpleNet
+from diagan_tpu_torch.train.checkpoint import bridge_for, read_state_dict
+from diagan_tpu_torch.utils import jax_params
+
+# a classifier's class -> the bridge of its JAX twin's variables (subclasses first)
+_BRIDGES = ((AttrClassifier, jax_params.attr_classifier_state_dict),
+            (Simple3DNet, jax_params.simple3dnet_state_dict),
+            (SimpleConvNet, jax_params.simple_convnet_state_dict),
+            (SimpleNet, jax_params.simple_net_state_dict))
+
+
+def load_classifier(model, path):
+    """Load a classifier file into `model`, on its device: the port's torch
+    state_dict ({attr}.pth of cli.train_convnet_celeba, ckpt_{epoch}.pt of
+    train_classifier), or the JAX package's Flax bytes of {params,
+    batch_stats} under the same names, through the bridge of the model's
+    class. Returns the model."""
+    model.load_state_dict(read_state_dict(path, lambda v: bridge_for(model, _BRIDGES)(v)))
+    return model
 
 
 def multistep_lr(base_lr, epochs, steps_per_epoch, gamma=0.1):

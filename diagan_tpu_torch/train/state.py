@@ -1,5 +1,5 @@
-"""Per-network train state: a module, its Adam and its update count
-(counterpart of diagan_tpu/train/state.py and of `_make_tx` in
+"""Per-network train state: a module, its Adam, its update count and its
+step (counterpart of diagan_tpu/train/state.py and of `_make_tx` in
 diagan_tpu/train/trainer.py).
 
 The learning rate follows the JAX package's schedule, which optax evaluates
@@ -13,6 +13,13 @@ sets each param group's lr from the net's own count before `step()`; the
 count travels in the checkpoint, so a restored net (also netD_drs cloned
 from netD's phase-1 file) continues its schedule and Adam's bias correction.
 optax adam(b1, b2, eps=1e-8) and torch.optim.Adam are the same arithmetic.
+
+`step` is the JAX NetState's step: it also counts the net's updates, and the
+trainer's global step is max(G's step, D's step // n_dis). The two differ
+only after a reference (torch-mimicry) file: as the JAX package's
+import_torch_net, the step is then the file's global_step while the update
+count, and with it the lr schedule and Adam's moments, starts again at 0
+(train/checkpoint.py restore_net).
 """
 from __future__ import annotations
 
@@ -61,7 +68,8 @@ def load_adam_moments(optim, module, moments):
 
 
 class NetState:
-    """A module, its Adam optimizer and its update count."""
+    """A module, its Adam optimizer, its update count (the lr schedule's) and
+    its step (the JAX NetState's)."""
 
     def __init__(self, module, spec, num_steps, decay, updates_per_step=1):
         self.module = module
@@ -69,6 +77,7 @@ class NetState:
                                       eps=1e-8)
         self.schedule = make_schedule(spec.lr, num_steps, decay, updates_per_step)
         self.count = 0
+        self.step = 0
 
     def apply_update(self):
         """One Adam update from the gradients in .grad, at the lr of this count."""
@@ -77,3 +86,4 @@ class NetState:
             group["lr"] = lr
         self.optim.step()
         self.count += 1
+        self.step += 1

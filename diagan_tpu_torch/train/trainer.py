@@ -14,8 +14,12 @@ As the JAX trainer (and reference diagan-pkg/diagan/trainer/trainer.py):
     checkpoint;
   - checkpoints every save_steps under checkpoints/{netG,netD,netD_drs}/ as
     `{name}_{step}_steps.pth`, plus checkpoints/logit_buffer.npz;
-  - resume at global_step = max(G updates, D updates // n_dis); netD_drs can
-    start from netD's phase-1 file (weights, Adam state and update count);
+  - resume at global_step = max(G's step, D's step // n_dis) (each net's
+    step counts its updates); netD_drs can start from netD's phase-1 file
+    (weights, Adam state, update count and step). The files may also be the
+    JAX package's or the reference's (train/checkpoint.py restore_net): from
+    a reference file the step is its global_step and Adam starts fresh, as in
+    the JAX package;
   - SIGTERM or KeyboardInterrupt stops after the current step and flushes
     the checkpoints and logit pickles;
   - scalars lr_{i} in the order [D, D_drs?, G], every log_steps;
@@ -140,10 +144,10 @@ class LogTrainer:
         self.global_step = 0
         if netG_ckpt_file:
             ckpt.restore_net(self.g, netG_ckpt_file)
-            self.global_step = max(self.global_step, self.g.count)
+            self.global_step = max(self.global_step, self.g.step)
         if netD_ckpt_file:
             ckpt.restore_net(self.d, netD_ckpt_file)
-            self.global_step = max(self.global_step, self.d.count // max(1, n_dis))
+            self.global_step = max(self.global_step, self.d.step // max(1, n_dis))
         if netD_drs_ckpt_file and self.train_drs:
             # clone of netD's phase-1 weights (train_mimicry_phase2.py:98-101)
             ckpt.restore_net(self.d_drs, netD_drs_ckpt_file)

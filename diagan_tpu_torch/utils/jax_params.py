@@ -1,7 +1,8 @@
-"""Weight bridge: the JAX package's Flax StyleGAN2, SNGAN, InceptionV3 and
-small-classifier (models/convnets.py) variables -> the port's state_dicts;
-the optax Adam state of the JAX StyleGAN2 trainer -> torch Adam moments; and
-the reference's (rosinality's) StyleGAN2 state_dicts -> the port's.
+"""Weight bridge: the JAX package's Flax StyleGAN2, SNGAN / SSGAN / InfoMax,
+MNIST DCGAN, toy, CAE, InceptionV3, LPIPS and small-classifier
+(models/convnets.py) variables -> the port's state_dicts; the optax Adam
+state of the JAX trainers -> torch Adam moments; and the reference's
+(rosinality's) StyleGAN2 state_dicts -> the port's.
 
 Input is a Flax variable tree as nested dicts of numpy arrays (what
 `jax.device_get(variables["params"])` gives); this module never imports jax.
@@ -49,8 +50,13 @@ Layout conversions:
     statistics) from the (H, W, C) reshape to the (C, H, W) one;
     decode/ConvTranspose_j -> tconvs.j, the last one tconv_out, each kernel
     flipped in both spatial axes; decode/BatchNorm_j (j >= 1) -> tbns.{j-1};
+  - LPIPS's VGG16 stack (eval/lpips.py): Conv_i -> convs.i;
+  - the mimicry bridges take {"params"} alone too (optax's mu and nu, whose
+    trees are the params'); the collections they find beside it
+    (batch_stats, spectral) are mapped as well;
   - optax.adam's state {"0": {"count", "mu", "nu"}, "1": {}} (the
-    regularisation-ratio Adam of diagan_tpu/train/stylegan2_trainer.py):
+    regularisation-ratio Adam of diagan_tpu/train/stylegan2_trainer.py; with
+    the mimicry trainer's linear decay "1" holds the schedule's count):
     mu and nu are trees of the params' shape and go through the params' own
     rule (every rule is a permutation, so the moments map leaf for leaf);
     count becomes each parameter's Adam step;
@@ -222,6 +228,12 @@ def _spectral_leaf(coll, inner, layer, prefix, arr):
     return None
 
 
+def _collections(variables, *names):
+    """{"params", and whichever of the collections `names` `variables` holds}:
+    a bridge then also maps a params-only tree, as optax's mu and nu are."""
+    return {"params": variables["params"], **{k: variables[k] for k in names if k in variables}}
+
+
 def _with_batches_tracked(sd):
     for key in [k for k in sd if k.endswith(".running_mean")]:
         sd[key.replace("running_mean", "num_batches_tracked")] = torch.tensor(0)
@@ -268,9 +280,9 @@ def sngan_generator_state_dict(variables):
     params = variables["params"]
     n_blocks = sum(1 for k in params if k.startswith("GBlock_"))
     ngf = params["GBlock_0"]["Conv_0"]["kernel"].shape[2]
-    tree = {"params": params, "batch_stats": variables["batch_stats"]}
-    return _with_batches_tracked(
-        _convert(tree, _sngan_generator_rule(ngf, n_blocks + 2), "SNGAN generator"))
+    return _with_batches_tracked(_convert(_collections(variables, "batch_stats"),
+                                          _sngan_generator_rule(ngf, n_blocks + 2),
+                                          "SNGAN generator"))
 
 
 def _sngan_discriminator_rule(head_name):
@@ -302,9 +314,8 @@ def _sngan_head_name(backbone_params):
 def sngan_discriminator_state_dict(variables):
     """Flax SNGANDiscriminator{32,64} variables {"params", "spectral"} -> the
     port discriminator's state_dict (torch-mimicry's layout)."""
-    params = variables["params"]
-    tree = {"params": params, "spectral": variables["spectral"]}
-    return _convert(tree, _sngan_discriminator_rule(_sngan_head_name(params)),
+    return _convert(_collections(variables, "spectral"),
+                    _sngan_discriminator_rule(_sngan_head_name(variables["params"])),
                     "SNGAN discriminator")
 
 
@@ -327,8 +338,7 @@ def _headed_discriminator_state_dict(variables, heads, what):
         layer = "Conv_0" if rest[0].startswith("SNConv") else "Dense_0"
         return _spectral_leaf(coll, rest[1:], layer, prefix, arr)
 
-    tree = {"params": params, "spectral": variables["spectral"]}
-    return _convert(tree, rule, what)
+    return _convert(_collections(variables, "spectral"), rule, what)
 
 
 def ssgan_discriminator_state_dict(variables):
@@ -427,7 +437,7 @@ def _convnet_rule(dense_names, prefix=()):
 
 
 def _convnet_state_dict(variables, dense_names, what, prefix=()):
-    tree = {k: variables[k] for k in ("params", "batch_stats") if k in variables}
+    tree = _collections(variables, "batch_stats")
     return _with_batches_tracked(_convert(tree, _convnet_rule(dense_names, prefix), what))
 
 
@@ -476,8 +486,8 @@ def mnist_dcgan_generator_state_dict(variables):
             return _bn_leaf(f"tconv.{_DCGAN_G_BN[i]}", rest[0], arr)
         return None
 
-    tree = {"params": variables["params"], "batch_stats": variables["batch_stats"]}
-    return _with_batches_tracked(_convert(tree, rule, "MNIST DCGAN generator"))
+    return _with_batches_tracked(_convert(_collections(variables, "batch_stats"), rule,
+                                          "MNIST DCGAN generator"))
 
 
 def mnist_dcgan_discriminator_state_dict(variables):
@@ -501,8 +511,8 @@ def mnist_dcgan_discriminator_state_dict(variables):
             return _bn_leaf(f"conv.{_DCGAN_D_BN[i]}", rest[0], arr)
         return None
 
-    tree = {k: variables[k] for k in ("params", "batch_stats", "spectral") if k in variables}
-    return _with_batches_tracked(_convert(tree, rule, "MNIST DCGAN discriminator"))
+    return _with_batches_tracked(_convert(_collections(variables, "batch_stats", "spectral"),
+                                          rule, "MNIST DCGAN discriminator"))
 
 
 def _toy_rule(n_dense):
@@ -524,7 +534,7 @@ def _toy_rule(n_dense):
 
 
 def _toy_state_dict(variables, what):
-    tree = {k: variables[k] for k in ("params", "spectral") if k in variables}
+    tree = _collections(variables, "spectral")
     n_dense = sum(1 for k in variables["params"] if _indexed(k, "Dense") is not None)
     return _convert(tree, _toy_rule(n_dense), what)
 
@@ -581,22 +591,42 @@ def cae_state_dict(variables):
                                         if leaf == "kernel" else arr)
         return None
 
-    tree = {"params": variables["params"], "batch_stats": variables["batch_stats"]}
-    return _with_batches_tracked(_convert(tree, rule, "CAE"))
+    return _with_batches_tracked(_convert(_collections(variables, "batch_stats"), rule, "CAE"))
+
+
+def lpips_state_dict(variables):
+    """Flax LPIPS VGG16 variables {"params": {Conv_0 ... Conv_12}}
+    (diagan_tpu/eval/lpips.py _VGGFeatures) -> the port LPIPS's state_dict
+    (convs.{i}, eval/lpips.py)."""
+    def rule(path, arr):
+        coll, head, rest = path[0], path[1], path[2:]
+        i = _indexed(head, "Conv")
+        if coll != "params" or i is None or i >= 13 or rest not in (("kernel",), ("bias",)):
+            return None
+        if rest == ("kernel",):
+            return f"convs.{i}.weight", _conv(arr)
+        return f"convs.{i}.bias", arr
+
+    return _convert({"params": variables["params"]}, rule, "LPIPS")
 
 
 # --- optax Adam state -> torch Adam moments ---------------------------------
 def optax_adam_moments(opt_state, bridge):
-    """{"count": int, "exp_avg": state_dict, "exp_avg_sq": state_dict} from
-    the msgpack-restored state of optax.adam (`{"0": {"count", "mu", "nu"},
-    "1": {}}`); `bridge` is the params' rule (generator_state_dict or
-    discriminator_state_dict)."""
-    if set(opt_state) != {"0", "1"} or opt_state["1"] or set(opt_state["0"]) != {
-            "count", "mu", "nu"}:
+    """{"count": int, "schedule_count": int or None, "exp_avg": state_dict,
+    "exp_avg_sq": state_dict} from the msgpack-restored state of optax.adam:
+    `{"0": {"count", "mu", "nu"}, "1": {}}` at a constant lr, `{"0": ...,
+    "1": {"count"}}` with a schedule (the mimicry trainer's linear decay,
+    diagan_tpu/train/trainer.py _make_tx), whose count becomes
+    "schedule_count". `bridge` maps a params tree (generator_state_dict,
+    discriminator_state_dict, or a mimicry bridge wrapped to take
+    {"params": tree}). Any other state raises."""
+    if (set(opt_state) != {"0", "1"} or set(opt_state["1"]) not in (set(), {"count"})
+            or set(opt_state["0"]) != {"count", "mu", "nu"}):
         raise ValueError(f"not an optax.adam state: keys {sorted(opt_state)}")
-    adam = opt_state["0"]
-    return {"count": int(np.asarray(adam["count"])), "exp_avg": bridge(adam["mu"]),
-            "exp_avg_sq": bridge(adam["nu"])}
+    adam, sched = opt_state["0"], opt_state["1"]
+    return {"count": int(np.asarray(adam["count"])),
+            "schedule_count": int(np.asarray(sched["count"])) if sched else None,
+            "exp_avg": bridge(adam["mu"]), "exp_avg_sq": bridge(adam["nu"])}
 
 
 # --- the reference's (rosinality's) StyleGAN2 -> the port ------------------

@@ -97,8 +97,9 @@ def test_phase1_scores_phase2_and_the_jax_eval_loader(narrow, tmp_path):
         np.testing.assert_array_equal(np.asarray(ours[key]), np.asarray(theirs[key]), err_msg=key)
     raw = torch.load(tmp_path / "p1" / "checkpoints" / "netD" / "netD_6_steps.pth",
                      weights_only=True)
-    assert set(raw) == {"model_state_dict", "optimizer_state_dict", "global_step", "update_count"}
-    assert raw["global_step"] == 6 and raw["update_count"] == 12
+    assert set(raw) == {"model_state_dict", "optimizer_state_dict", "global_step", "update_count",
+                        "step"}
+    assert raw["global_step"] == 6 and raw["update_count"] == 12 and raw["step"] == 12
     assert (tmp_path / "p1" / "checkpoints" / "logit_buffer.npz").is_file()
 
     tr2 = train_mimicry_phase2.main(narrow + [
