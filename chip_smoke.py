@@ -167,6 +167,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      files, every stage passing, then LPIPS card against CPU at 64 and 256
      px; 15d the by-index loaders on phase 10's CelebA (2,048 indices) equal
      to the plain gather, and their features on the card equal.
+ 16. data parallelism (diagan_tpu_torch.parallel): 16a --data_parallel at
+     world 1 over NCCL, in process, through the CLIs, against the plain run,
+     with cuDNN's deterministic algorithms: cli.train_mimicry_phase1
+     SNGAN-32 at full width on phase 8's 50k files for 10 steps with a sweep
+     at 10 and cli.train_ffhq at 256 px, full width, 4 steps without ADA,
+     each equal bit for bit (weights, buffers, Adam state, logit rows);
+     cli.train_ffhq with ADA at a fixed p = 0.3 (every training kernel
+     launching; the adjoint's atomics make no two runs equal), step 0 up to
+     G's first update bit for bit and the state beside a second plain run's
+     spread; ms per step with and without the flag; then
+     cli.train_ffhq --data_parallel with
+     adaptive ADA, whose p moves from the all-reduced sign sums and equals
+     their host replay. 16b
+     two ranks over gloo sharing the card, two processes (chip_smoke.py
+     --dp-worker DIR RANK): SNGAN-32 at full width, global batch 64, 4 steps
+     and a sharded eval sweep of the 50k (both ranks' states bit for bit, the
+     sharded row equal to the one-process row, D's first all-reduced gradient
+     equal to the mean of the ranks' own); StyleGAN2-256 at batch 4 a rank, 2
+     steps, adaptive ADA (the states and p equal on both ranks, each sign sum
+     the sum of the ranks'); each rank's ms per step and the bytes
+     all-reduced per step.
 Each phase prints its start, in seconds since the script started.
 The last lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a card it exits 2 and prints no result.
@@ -3562,8 +3583,9 @@ def flags_against_plain(dev, smi, work, tr1):
     # (|J^T y| - mean)^2, magnifies that round-off (1.2e-4 of max|g| between
     # two runs on an H100 80GB HBM3 without them); what is left is the order
     # of ADA's adjoint's clamped pass in the G step, printed as the plain
-    # run's spread
-    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+    # run's spread. TF32 stays off: flags() turns it on unless told
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
         for name in ("plain", "remat", "plain again"):
             # lr 0: every piece starts from the same weights (Adam turns a
             # round-off-sized gradient into a step of lr, whatever its size)
@@ -4106,6 +4128,446 @@ def index_loader_path(dev, smi, work, fid):
           f"{t_feat:.2f} s, features equal [{smi}]")
 
 
+# 16. data parallelism --------------------------------------------------------------
+DP_WORLD = 2  # 16b: two ranks sharing the one card over gloo
+DP_SNGAN_STEPS, DP_FFHQ_STEPS = 10, 4
+
+
+def run_state(tr):
+    """{name: tensor} of what a training run leaves: a LogTrainer's nets
+    (weights, buffers, Adam state, update counts) and logit rows, or a
+    StyleGAN2Trainer's G, D, G_ema, both Adams, ADA's p, pl_mean and logit
+    rows."""
+    out = {}
+
+    def module(name, m):
+        out.update({f"{name}.{k}": v for k, v in m.state_dict().items()})
+
+    def adam(name, opt):
+        for i, st in enumerate(opt.state.values()):
+            out.update({f"{name}.adam{i}.{k}": v for k, v in st.items()})
+
+    if hasattr(tr, "recorder"):
+        for name, net in (("g", tr.g), ("d", tr.d), ("d_drs", tr.d_drs)):
+            if net is not None:
+                module(name, net.module)
+                adam(name, net.optim)
+                out[f"{name}.counts"] = torch.tensor([net.count, net.step])
+        out["logits"] = tr.recorder.buffer[:tr.recorder.count]
+        return out
+    for name, m in (("g", tr.gen), ("d", tr.disc), ("g_ema", tr.g_ema)):
+        module(name, m)
+    adam("g", tr.g_optim)
+    adam("d", tr.d_optim)
+    out["ada_p"] = torch.tensor(tr.ada_aug_p, dtype=torch.float64)
+    out["pl_mean"] = tr.pl_mean
+    for step, row in tr.logit_results.get("netD_eval", {}).items():
+        out[f"logits@{step}"] = torch.from_numpy(row)
+    return out
+
+
+def state_diff(a, b):
+    """The names whose tensors differ between two run_state()s (any bit),
+    and the largest absolute difference among them."""
+    check(a.keys() == b.keys(), f"run states hold different tensors: {set(a) ^ set(b)}")
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    worst = max((max_err(a[k], b[k]) for k in differ), default=0.0)
+    return differ, worst
+
+
+def timed_fused_steps(log):
+    """Patch the trainer's make_fused_step so that every fused step appends
+    its synchronised seconds to log."""
+    from diagan_tpu_torch.train import trainer as TT
+
+    make = TT.make_fused_step
+
+    def timed_make(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            log.append(time.perf_counter() - t0)
+            return out
+        return run
+    return mock.patch.object(TT, "make_fused_step", timed_make)
+
+
+def dp_world1_path(dev, smi, work):
+    """16a. --data_parallel at world 1 over NCCL, in process, through the
+    CLIs, against the plain run, with cuDNN's deterministic algorithms (TF32
+    convs). Bit for bit (weights, buffers, Adam state, pl_mean, logit rows):
+    SNGAN-32 phase 1 at full width on phase 8's 50k files (DP_SNGAN_STEPS
+    steps, a sweep at the last) and cli.train_ffhq at SIZE px, full width,
+    batch 16, without ADA (DP_FFHQ_STEPS steps, a sweep at step 2). With ADA
+    at a fixed p = 0.3, whose adjoint's atomics make no two runs equal:
+    step 0 up to G's first update bit for bit, the state beside a second
+    plain run's spread. ms per step with and without the flag. Then
+    cli.train_ffhq --data_parallel with adaptive ADA: p moves at the first
+    update (256 images) from the all-reduced sign sums, and equals a host
+    replay of them. Every training kernel (#1-#7: kernel A's A1-A7, the
+    fused act's and the warp's kernels) must launch on the DP FFHQ runs.
+    Returns their launches: (by kernel, kernel A's by instance)."""
+    import torch.distributed as dist
+
+    from diagan_tpu_torch.cli import train_ffhq, train_mimicry_phase1
+    from diagan_tpu_torch.models.ada import AdaptiveAugment
+    from diagan_tpu_torch.ops import _build
+    from diagan_tpu_torch.train.stylegan2_trainer import StyleGAN2Trainer
+
+    cifar, ffhq = work / "sngan" / "cifar10", work / "train" / "data"
+    check(cifar.is_dir() and (ffhq / f"ffhq_{SIZE}.npy").is_file(),
+          "phase 8's or phase 6's dataset is missing")
+    out = work / "dp"
+    sngan = ["-r", str(cifar), "--work_dir", str(out), "--device", dev.type, "--batch_size",
+             str(SNGAN_BS), "--n_dis", str(SNGAN_NDIS), "--seed", str(SEED),
+             "--no_schedule_override", "--num_steps", str(DP_SNGAN_STEPS),
+             "--logit_save_steps", str(DP_SNGAN_STEPS), "--save_logit_after",
+             str(DP_SNGAN_STEPS), "--stop_save_logit_after", str(DP_SNGAN_STEPS)]
+    ffhq_args = ["-d", "ffhq", "-r", str(ffhq), "--size", str(SIZE), "--batch", "16",
+                 "--work_dir", str(out), "--seed", str(SEED), "--device", dev.type]
+    runs, ms = {}, {}
+    # cuDNN's deterministic algorithms (its default algorithms add with
+    # atomics, forwards included), with TF32 convs (PyTorch's default): TF32
+    # changes neither side of an equality, and fp32's deterministic
+    # algorithms are slow (a plain StyleGAN2-256 step 1887.83 ms against
+    # 183.38 with TF32, an H100 80GB HBM3 at 700 W)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=True):
+        for flag in ("", "--data_parallel"):
+            steps = []
+            with timed_fused_steps(steps):
+                tr = train_mimicry_phase1.main(sngan + ["--exp_name", f"sngan{flag}"]
+                                               + [flag] * bool(flag))
+            check((tr.dp is not None) == bool(flag), "--data_parallel did not reach the trainer")
+            runs["sngan" + flag] = run_state(tr), tr.dp
+            ms["sngan" + flag] = 1e3 * sum(steps[1:]) / len(steps[1:])
+        dp = runs["sngan--data_parallel"][1]
+        check((dp.rank, dp.world, dp.backend) == (0, 1, "nccl" if dev.type == "cuda" else "gloo"),
+              f"--data_parallel formed {dp}, not a world of one over NCCL")
+        differ, worst = state_diff(runs["sngan"][0], runs["sngan--data_parallel"][0])
+        check(not differ, f"SNGAN-32 --data_parallel differs from the plain run in {len(differ)} "
+                          f"tensors (max abs {worst:.3e}), e.g. {differ[:4]}")
+        sngan_bytes = dp.bytes_all_reduced
+        pkl = [(out / name / "logits_netD_eval.pkl").read_bytes()
+               for name in ("sngan", "sngan--data_parallel")]
+        check(pkl[0] == pkl[1], "the logit pickles differ")
+        print(f"16a SNGAN-32 phase 1 (ngf 256, ndf 128, batch {SNGAN_BS}, n_dis {SNGAN_NDIS}, "
+              f"{DP_SNGAN_STEPS} steps, a sweep of {SNGAN_N} at step {DP_SNGAN_STEPS}): "
+              f"--data_parallel (world 1, NCCL) equals the plain run bit for bit in "
+              f"{len(runs['sngan'][0])} tensors and the logit pickle; ms per step (steps 2-"
+              f"{DP_SNGAN_STEPS}, synchronised, host clock; cuDNN deterministic, TF32 convs) "
+              f"plain {ms['sngan']:.2f}, "
+              f"--data_parallel {ms['sngan--data_parallel']:.2f}; "
+              f"{sngan_bytes / DP_SNGAN_STEPS / 1e6:.3f} MB all-reduced per step (the sweep's "
+              f"row and the logged metrics included) [{smi}]")
+        del runs
+
+        launches, fir = {}, {}
+
+        def ffhq_run(name, flags):
+            """cli.train_ffhq, DP_FFHQ_STEPS steps with a sweep at step 2:
+            (run_state, group, [(synchronised ms, metrics)] by step)."""
+            log = []
+            train_step = StyleGAN2Trainer.train_step
+
+            def step(self, s):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = train_step(self, s)
+                torch.cuda.synchronize()
+                log.append((1e3 * (time.perf_counter() - t0), {k: float(v) for k, v in m.items()}))
+                return m
+            _build.reset_launches()
+            with mock.patch.object(StyleGAN2Trainer, "train_step", step):
+                tr = train_ffhq.main(ffhq_args + [
+                    "--exp_name", name, "--iter", str(DP_FFHQ_STEPS), "--logit_save_steps", "2",
+                    "--save_logit_after", "0"] + flags)
+            torch.cuda.synchronize()
+            dp_run = "--data_parallel" in flags
+            check((tr.dp is not None) == dp_run, "--data_parallel did not reach the trainer")
+            if dp_run:
+                launches[name], fir[name] = dict(_build.LAUNCHES), fir_launches(name)
+            return run_state(tr), tr.dp, log
+
+        def per_step_ms(log):  # steps 2..: no R1 or path step
+            return sum(ms for ms, _ in log[1:]) / len(log[1:])
+
+        # without ADA every kernel on the path sums in a fixed order: bit for bit
+        plain = ffhq_run("ffhq", [])
+        dp_run = ffhq_run("ffhq_dp", ["--data_parallel"])
+        differ, worst = state_diff(plain[0], dp_run[0])
+        check(not differ, f"StyleGAN2-{SIZE} --data_parallel differs from the plain run in "
+                          f"{len(differ)} tensors (max abs {worst:.3e}), e.g. {differ[:4]}")
+        print(f"16a cli.train_ffhq {SIZE} px (full width, batch 16, no ADA, {DP_FFHQ_STEPS} "
+              f"steps, a sweep of {N_DATA} at step 2): --data_parallel (world 1, NCCL) equals "
+              f"the plain run bit for bit in {len(plain[0])} tensors; ms per step (steps 2-"
+              f"{DP_FFHQ_STEPS}, synchronised, host clock; cuDNN deterministic, TF32 convs) "
+              f"plain {per_step_ms(plain[2]):.2f}, --data_parallel {per_step_ms(dp_run[2]):.2f} "
+              f"[{smi}]")
+        # ADA at p = 0.3: the adjoint's clamped pass adds with atomics in a
+        # run-dependent order, and Adam turns that round-off into steps of
+        # lr, so no two runs agree bit for bit. The DP run is held to step
+        # 0's values up to G's first update (D's loss and scores, the sign
+        # sum, R1, G's loss) bit for bit, and differs only where a second
+        # plain run differs too
+        ada = ["--augment", "--augment_p", "0.3"]
+        plain = ffhq_run("ffhq_ada", ada)
+        dp_run = ffhq_run("ffhq_ada_dp", ada + ["--data_parallel"])
+        again = ffhq_run("ffhq_ada_again", ada)
+        differ, worst = state_diff(plain[0], dp_run[0])
+        spread = state_diff(plain[0], again[0])
+        first = ("d", "real_score", "fake_score", "sign_real", "r1", "g")
+        check(all(plain[2][0][1][k] == dp_run[2][0][1][k] == again[2][0][1][k] for k in first),
+              f"ADA p=0.3: step 0 differs before G's first update: plain {plain[2][0][1]}, "
+              f"--data_parallel {dp_run[2][0][1]}, plain again {again[2][0][1]}")
+        check(not differ or spread[0], f"ADA p=0.3: --data_parallel differs from a plain run "
+                                       f"that repeats itself bit for bit, in {len(differ)} tensors")
+        ffhq_ms = per_step_ms(plain[2]), per_step_ms(dp_run[2])
+        dp = dp_run[1]
+        print(f"16a cli.train_ffhq {SIZE} px (full width, batch 16, ADA p=0.3, {DP_FFHQ_STEPS} "
+              f"steps, a sweep of {N_DATA} at step 2), --data_parallel (world 1, NCCL): step "
+              f"0's {', '.join(first)} equal to the plain run's bit for bit; {len(differ)} of "
+              f"{len(plain[0])} tensors differ from the plain run (max abs {worst:.3e}), as "
+              f"{len(spread[0])} differ between two plain runs (max abs {spread[1]:.3e}); ms per "
+              f"step (steps 2-{DP_FFHQ_STEPS}: no R1 or path step; synchronised, host clock; "
+              f"cuDNN deterministic, TF32 convs) plain {ffhq_ms[0]:.2f}, --data_parallel "
+              f"{ffhq_ms[1]:.2f} ({100 * (ffhq_ms[1] / ffhq_ms[0] - 1):+.2f}%), a second plain "
+              f"run {per_step_ms(again[2]):.2f}; {dp.bytes_all_reduced / DP_FFHQ_STEPS / 1e6:.3f} "
+              f"MB all-reduced per step [{smi}]")
+        del plain, dp_run, again, dp
+
+    # adaptive ADA: a target below every r_t, so p rises at each update (every
+    # 256 images), from the all-reduced sign sums
+    tunes = []
+    tune = StyleGAN2Trainer.tune_ada
+
+    def recording_tune(self, metrics):
+        tune(self, metrics)
+        tunes.append((float(metrics["sign_real"]), self.batch_size * self.world, self.ada_aug_p))
+
+    steps = 17
+    _build.reset_launches()
+    with mock.patch.object(StyleGAN2Trainer, "tune_ada", recording_tune):
+        tr = train_ffhq.main(ffhq_args + [
+            "--exp_name", "ffhq_adaptive", "--augment", "--augment_p", "0", "--ada_target", "-1",
+            "--ada_length",
+            "2000", "--iter", str(steps), "--logit_save_steps", "0", "--data_parallel"])
+    torch.cuda.synchronize()
+    launches["ffhq_adaptive"], fir["ffhq_adaptive"] = dict(_build.LAUNCHES), fir_launches(
+        "ffhq_adaptive")
+    replay = AdaptiveAugment(-1.0, 2000)
+    want = [replay.tune(s, n) for s, n, _ in tunes]
+    check(len(tunes) == steps and [p for *_, p in tunes] == want and tr.ada_aug_p == want[-1] > 0
+          and tunes[15][2] > 0 == tunes[14][2] and replay.r_t_stat == tr.ada.r_t_stat,
+          f"adaptive ADA's p {[p for *_, p in tunes]} against the replay {want}")
+    print(f"16a cli.train_ffhq --data_parallel, adaptive ADA ({steps} steps, batch 16, target -1, "
+          f"length 2000): the all-reduced sign sums {[s for s, *_ in tunes]} over counts of "
+          f"{tunes[0][1]}; r_t {tr.ada.r_t_stat:.4f}; p 0 -> {tr.ada_aug_p:.4f} at the update "
+          f"after step 16, equal to the host replay; metrics "
+          f"{finite_metrics(tr, ('d', 'g', 'r1', 'path'))}")
+    del tr
+
+    total = {k: sum(run[k] for run in launches.values()) for k in _build.LAUNCHES}
+    fir_total = {i: sum(run[i] for run in fir.values()) for i in _build.FIR_INSTANCES}
+    check(all(launches["ffhq_ada_dp"][k] > 0 for k in FLAG_KERNELS) and
+          all(total[k] == 0 for k in WARP2), f"DP FFHQ launches {launches}")
+    a1_a7 = ("fir4x4", "fir4x4_up2", "fir4x4_down2", "fir12y_up2", "fir12y_down2",
+             "fir12x_up2", "fir12x_down2")
+    check(all(fir["ffhq_ada_dp"][i] > 0 for i in a1_a7), f"DP FFHQ kernel A instances {fir}")
+    print(f"16a launches on the DP FFHQ runs: {launches}; kernel A by instance {fir}")
+    dist.destroy_process_group()  # the world of one; 16b's ranks form their own group
+    return total, fir_total
+
+
+def dp_rank_sngan(dp, dev, cifar, run_dir):
+    """16b, on one rank: SNGAN-32 at full width, global batch SNGAN_BS, 4
+    steps through LogTrainer, then one sharded eval sweep of the 50k and, on
+    rank 0, the same sweep in one process. Returns what the parent compares."""
+    import hashlib
+
+    from diagan_tpu_torch.data.predefined import get_predefined_dataset
+    from diagan_tpu_torch.models.registry import get_gan_model
+    from diagan_tpu_torch.train import state as TS
+    from diagan_tpu_torch.train.logit_recorder import LogitRecorder
+    from diagan_tpu_torch.train.trainer import LogTrainer
+
+    first = []
+    reduce = TS.all_reduce_grads_
+
+    def recording_reduce(module, group):  # D's first update: its grads before and after
+        local = [p.grad.detach().clone() for p in module.parameters() if p.grad is not None]
+        reduce(module, group)
+        if not first:
+            first.append((torch.cat([g.flatten() for g in local]).cpu(),
+                          torch.cat([p.grad.flatten() for p in module.parameters()
+                                     if p.grad is not None]).cpu()))
+
+    steps = []
+    bundle = get_gan_model("cifar10", model="sngan", loss_type="hinge", device=dev)
+    ds = get_predefined_dataset("cifar10", root=str(cifar))
+    with mock.patch.object(TS, "all_reduce_grads_", recording_reduce), timed_fused_steps(steps):
+        tr = LogTrainer(output_path=run_dir / "sngan", bundle=bundle, dataset=ds, num_steps=4,
+                        n_dis=SNGAN_NDIS, batch_size=SNGAN_BS, save_logits=False, seed=SEED,
+                        device=dev, data_parallel=dp)
+        tr.train()
+    bytes_train = dp.bytes_all_reduced
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    row = tr.recorder.sweep(tr.d.module, tr.source)
+    torch.cuda.synchronize()
+    t_sweep = time.perf_counter() - t0
+    out = {"hash": {k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
+                    for k, v in run_state(tr).items() if k != "logits"},
+           "grads": first[0], "row": row.cpu(), "steps_ms": [1e3 * s for s in steps],
+           "bytes_per_step": bytes_train / 4, "sweep_s": t_sweep}
+    if dp.rank == 0:
+        out["single_row"] = LogitRecorder(len(ds), 2, device=dev).sweep(tr.d.module,
+                                                                        tr.source).cpu()
+    dp.barrier()
+    return out
+
+
+def dp_rank_stylegan2(dp, dev, ffhq, run_dir):
+    """16b, on one rank: StyleGAN2-SIZE at full width through
+    StyleGAN2Trainer, batch 4 per rank, 2 steps, adaptive ADA updating every
+    8 images (one update a step). Returns hashes of its state, and each
+    step's local and all-reduced sign sums and p."""
+    import hashlib
+
+    from diagan_tpu_torch.models.stylegan2 import StyleGAN2Discriminator, StyleGAN2Generator
+    from diagan_tpu_torch.train.stylegan2_trainer import StyleGAN2Trainer
+
+    torch.manual_seed(SEED + dp.rank)  # different inits: the broadcast makes them rank 0's
+    g = StyleGAN2Generator(SIZE, STYLE_DIM, N_MLP, CH_MULT, device=dev)
+    d = StyleGAN2Discriminator(SIZE, CH_MULT, device=dev)
+    images = np.load(ffhq / f"ffhq_{SIZE}.npy", mmap_mode="r")
+    tr = StyleGAN2Trainer(run_dir / "stylegan2", g, d, images, num_steps=2, batch_size=4,
+                          augment_p=0, ada_length=2000, seed=SEED, device=dev, data_parallel=dp)
+    tr.ada.update_every = 4 * dp.world
+    signs, steps = [], []
+    tune = tr.tune_ada
+
+    def recording_tune(metrics):
+        local = float(metrics["sign_real"])
+        tune(metrics)
+        signs.append((local, float(metrics["sign_real"]), tr.ada_aug_p))
+    tr.tune_ada = recording_tune
+    reduced = dp.bytes_all_reduced  # the SNGAN case's
+    with timed(StyleGAN2Trainer, "train_step", steps):
+        tr.train()
+    out = {"hash": {k: hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
+                    for k, v in run_state(tr).items() if k != "pl_mean"},
+           "signs": signs, "steps_ms": [1e3 * s for _, s in steps],
+           "bytes_per_step": (dp.bytes_all_reduced - reduced) / 2, "r_t": tr.ada.r_t_stat}
+    dp.barrier()
+    return out
+
+
+def dp_worker(run_dir, rank):
+    """One of 16b's ranks (chip_smoke.py --dp-worker DIR RANK): joins the
+    gloo group through DIR/store, runs dp_rank_sngan and dp_rank_stylegan2
+    on the card and writes their results to DIR/rank{RANK}.pt."""
+    import torch.distributed as dist
+
+    from diagan_tpu_torch.parallel import init_data_parallel
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run_dir = Path(run_dir)
+    work = run_dir.parent
+    dist.init_process_group("gloo", init_method=f"file://{run_dir / 'store'}", rank=rank,
+                            world_size=DP_WORLD)
+    try:
+        dp = init_data_parallel("cuda", backend="gloo")
+        check((dp.rank, dp.world, dp.backend) == (rank, DP_WORLD, "gloo"), f"group {dp}")
+        out = {"sngan": dp_rank_sngan(dp, dp.device, work / "sngan" / "cifar10", run_dir),
+               "stylegan2": dp_rank_stylegan2(dp, dp.device, work / "train" / "data", run_dir)}
+        torch.save(out, run_dir / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dp_world2_path(smi, work, timeout=400):
+    """16b. Two ranks over gloo on the one card, two processes: SNGAN-32 at
+    full width, global batch 64 (32 a rank), 4 steps, then a sharded eval
+    sweep of the 50k: both ranks' weights, BatchNorm buffers and Adam state
+    bit for bit, the sharded row equal to the one-process row bit for bit,
+    and D's first all-reduced gradient equal to the mean of the two ranks'
+    gradients computed apart (a + b rounds the same in either order, and
+    halving is exact); StyleGAN2-SIZE at batch 4 a rank, 2 steps, adaptive
+    ADA: the states and p equal on both ranks, the sign sum of each step the
+    sum of the ranks'. Not a speed claim: gloo stages CUDA tensors through
+    the host."""
+    from diagan_tpu_torch.models.ada import AdaptiveAugment
+
+    run_dir = work / "dp2"
+    run_dir.mkdir()
+    t0 = time.perf_counter()
+    logs = [open(run_dir / f"rank{r}.log", "w") for r in range(DP_WORLD)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-worker",
+                               str(run_dir), str(r)], cwd=ROOT, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(DP_WORLD)]
+    try:
+        rcs = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    for r, rc in enumerate(rcs):
+        if rc:
+            print((run_dir / f"rank{r}.log").read_text()[-6000:])
+        check(rc == 0, f"16b rank {r} exited {rc}")
+    outs = [torch.load(run_dir / f"rank{r}.pt", weights_only=False) for r in range(DP_WORLD)]
+
+    s = [o["sngan"] for o in outs]
+    check(s[0]["hash"] == s[1]["hash"], "16b SNGAN: the ranks' states differ: " + str(
+        [k for k in s[0]["hash"] if s[0]["hash"][k] != s[1]["hash"].get(k)][:6]))
+    check(torch.equal(s[0]["row"], s[1]["row"]) and torch.equal(s[0]["row"], s[0]["single_row"]),
+          f"16b the sharded sweep differs from the one-process sweep by "
+          f"{max_err(s[0]['row'], s[0]['single_row']):.3e}")
+    (l0, a0), (l1, a1) = s[0]["grads"], s[1]["grads"]
+    check(torch.equal(a0, a1) and torch.equal(a0, (l0 + l1) / 2),
+          f"16b D's first all-reduced gradient against the mean of the ranks': "
+          f"{max_err(a0, (l0 + l1) / 2):.3e}")
+    print(f"16b SNGAN-32 over gloo, 2 ranks on one card (global batch {SNGAN_BS}, "
+          f"{SNGAN_BS // DP_WORLD} a rank, n_dis {SNGAN_NDIS}, 4 steps): {len(s[0]['hash'])} "
+          f"tensors (weights, BatchNorm "
+          f"buffers, Adam state, counts) bit for bit on both ranks; D's first all-reduced "
+          f"gradient ({l0.numel()} values) equals the mean of the ranks' own bit for bit "
+          f"(ranks' gradients differ by {max_err(l0, l1):.3e}); the sharded eval sweep of "
+          f"{SNGAN_N} equals the one-process sweep bit for bit; ms per step (steps 2-4) "
+          f"{[round(sum(o['steps_ms'][1:]) / 3, 2) for o in s]} by rank, sharded sweep "
+          f"{[round(o['sweep_s'], 3) for o in s]} s by rank; "
+          f"{s[0]['bytes_per_step'] / 1e6:.3f} MB all-reduced per step [{smi}]")
+
+    g = [o["stylegan2"] for o in outs]
+    check(g[0]["hash"] == g[1]["hash"], "16b StyleGAN2: the ranks' states differ: " + str(
+        [k for k in g[0]["hash"] if g[0]["hash"][k] != g[1]["hash"].get(k)][:6]))
+    replay = AdaptiveAugment(0.6, 2000, update_every=4 * DP_WORLD)
+    for (l0, s0, p0), (l1, s1, p1) in zip(g[0]["signs"], g[1]["signs"]):
+        check(s0 == s1 == l0 + l1 and p0 == p1 == replay.tune(s0, 4 * DP_WORLD),
+              f"16b StyleGAN2 signs and p by rank {g[0]['signs']} {g[1]['signs']}")
+    check(len(g[0]["signs"]) == 2 and g[0]["r_t"] == g[1]["r_t"] == replay.r_t_stat,
+          "16b StyleGAN2 ADA's r_t")
+    print(f"16b StyleGAN2-{SIZE} over gloo, 2 ranks on one card (batch 4 a rank, 2 steps, "
+          f"adaptive ADA updating every 8 images): {len(g[0]['hash'])} tensors (G, D, G_ema, "
+          f"both Adams, p, logit rows) bit for bit on both ranks; (local sign sums, their "
+          f"all-reduced sum, p) by step: rank 0 {g[0]['signs']}, rank 1 {g[1]['signs']}; the "
+          f"sum is the ranks' and p the host replay's on both; ms per step "
+          f"{[[round(t, 2) for t in o['steps_ms']] for o in g]} by rank; "
+          f"{g[0]['bytes_per_step'] / 1e6:.3f} MB all-reduced per step; the two processes "
+          f"took {wall:.2f} s in all, start-up included [{smi}]")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -4115,11 +4577,15 @@ def main(argv=None):
                         help="also time the warp adjoints and the interleaved gather of the "
                              "checkout at ROOT (e.g. the parent commit's tree) in turns with "
                              "this one")
+    parser.add_argument("--dp-worker", nargs=2, metavar=("DIR", "RANK"),
+                        help="run one of phase 16b's two ranks (the script starts them)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a card",
               file=sys.stderr)
         return 2
+    if args.dp_worker:
+        return dp_worker(args.dp_worker[0], int(args.dp_worker[1]))
     from diagan_tpu_torch.cli import generate
     from diagan_tpu_torch.eval.drs import DRS
     from diagan_tpu_torch.eval.evaluate import (
@@ -4488,6 +4954,18 @@ def main(argv=None):
     fid = weights_gate_path(dev, smi, work / "weights")
     phase("15d. the by-index loaders on phase 10's CelebA")
     index_loader_path(dev, smi, work, fid)
+
+    # 16. data parallelism over torch.distributed
+    phase("16a. --data_parallel at world 1 over NCCL, through the CLIs, against the plain run")
+    dp_launches, dp_fir = dp_world1_path(dev, smi, work)
+    for k in kernels:  # the DP FFHQ runs' launches join the fp32 rows
+        name = k["name"]
+        if name in dp_launches:
+            k["launches"] += dp_launches[name]
+        elif name.startswith("upfirdn2d/"):
+            k["launches"] += dp_fir[name.split("/", 1)[1]]
+    phase("16b. two ranks over gloo on the one card")
+    dp_world2_path(smi, work)
 
     shutil.rmtree(work, ignore_errors=True)
     phase("done")

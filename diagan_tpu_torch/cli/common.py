@@ -4,9 +4,11 @@ diagan_tpu/cli/common.py).
 Flag names and defaults as the JAX package's scripts (the reference's
 --gpu and --download_dataset are accepted and ignored), plus --device
 (default cuda; without a card and without --device cpu the scripts raise).
---bf16 and --simultaneous_g do what the JAX package's do (the scripts pass
-them on, each as its JAX counterpart does); --data_parallel is accepted and
-raises when set: it is not in the port yet.
+--bf16, --simultaneous_g and --data_parallel do what the JAX package's do
+(the scripts pass them on, each as its JAX counterpart does). With
+--data_parallel, --batch_size is the global batch, split evenly over the
+ranks: one process per card under torchrun, or in process a world of one
+(parallel/dist.py).
 """
 from __future__ import annotations
 
@@ -15,8 +17,6 @@ import pickle
 from pathlib import Path
 
 import numpy as np
-
-NOT_PORTED = ("data_parallel",)
 
 
 def add_common_train_flags(parser: argparse.ArgumentParser):
@@ -30,18 +30,29 @@ def add_common_train_flags(parser: argparse.ArgumentParser):
     # scripts fall back to the baseline phase-1 checkpoints on a fresh start
     parser.add_argument("--auto_resume", action="store_true")
     parser.add_argument("--bf16", action="store_true")
-    parser.add_argument("--data_parallel", action="store_true")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="train over every rank of the process group (torchrun), or a "
+                             "world of one in process; --batch_size is the global batch")
     parser.add_argument("--device", default="cuda", type=str)
     return parser
 
 
-def check_ported(args):
-    """Raise for the flags of the JAX package's scripts that the port does
-    not have yet."""
-    unported = [f"--{f}" for f in NOT_PORTED if getattr(args, f, False)]
-    if unported:
-        raise NotImplementedError(f"{', '.join(unported)}: not in the port yet "
-                                  "(see ROADMAP.md, Queue A)")
+def data_parallel_from_args(args, device):
+    """(parallel.DataParallel over the process group, this rank's device)
+    when --data_parallel (the JAX package's mesh_from_args); (None, device)
+    for a plain run."""
+    if not getattr(args, "data_parallel", False):
+        return None, device
+    from diagan_tpu_torch.parallel import init_data_parallel
+
+    dp = init_data_parallel(device)
+    print(f"data-parallel: rank {dp.rank} of {dp.world} on {dp.device} ({dp.backend})")
+    return dp, dp.device
+
+
+def is_main(dp):
+    """Whether this process writes the run's files: rank 0, or a plain run."""
+    return dp is None or dp.is_main
 
 
 def step_fusions_from_args(args):

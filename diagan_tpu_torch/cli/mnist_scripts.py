@@ -34,7 +34,8 @@ import torch
 
 from diagan_tpu_torch.cli.common import (
     add_common_train_flags,
-    check_ported,
+    data_parallel_from_args,
+    is_main,
     latest_ckpt_step,
     resolve_phase2_resume,
 )
@@ -86,7 +87,6 @@ def _decay(args):
 def _setup(parser, argv):
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
-    check_ported(args)
     save_path = Path(f"{args.work_dir}/{args.exp_name}")
     save_path.mkdir(parents=True, exist_ok=True)
     set_seed(args.seed)
@@ -136,6 +136,7 @@ def phase1(dataset, root, exp, argv=None):
     parser.add_argument("--topk", default=0, type=int)
     parser.add_argument("--resample_score", type=str)
     args, device, save_path = _setup(parser, argv)
+    dp, device = data_parallel_from_args(args, device)
 
     bundle = get_gan_model(dataset_name=args.dataset, model=args.model, num_pack=args.num_pack,
                            loss_type=args.loss_type, topk=args.topk == 1, bf16=args.bf16,
@@ -155,10 +156,11 @@ def phase1(dataset, root, exp, argv=None):
                        netG_ckpt_file=netG_ckpt, netD_ckpt_file=netD_ckpt,
                        topk=args.topk == 1,
                        save_logits=args.num_pack == 1,  # PacGAN records none (reference :130)
-                       save_eval_logits=False)  # train-mode logits (reference :131)
+                       save_eval_logits=False,  # train-mode logits (reference :131)
+                       data_parallel=dp)
     print_num_params(bundle.gen, bundle.disc)
     trainer.train()
-    if dataset == "color_mnist":
+    if dataset == "color_mnist" and is_main(dp):
         trainer.channel_counts = plot_color_mnist_generator(
             _gen_fn_from_trainer(trainer), save_path=save_path, file_name="eval_p1")
     return trainer
@@ -182,6 +184,7 @@ def phase2(dataset, root, exp, argv=None):
         # the reference fmnist phase 2 only (train_mimicry_mnist_fmnist_phase2.py:65,156-157)
         parser.add_argument("--gold", action="store_true")
     args, device, save_path = _setup(parser, argv)
+    dp, device = data_parallel_from_args(args, device)
     gold = bool(getattr(args, "gold", False))
     baseline_save_path = Path(f"{args.work_dir}/{args.baseline_exp_name}")
     prefix = args.exp_name.split("/")[-1]
@@ -208,23 +211,24 @@ def phase2(dataset, root, exp, argv=None):
         warn_if_degenerate_weights(sample_weights, args.resample_score)
 
     ds_train = _dataset(args)
-    plot_score_sort(ds_train, score_dict, save_path=save_path,
-                    phase=f"{prefix}_{args.p1_step - 5000}-{args.p1_step}_score")
+    if is_main(dp):
+        plot_score_sort(ds_train, score_dict, save_path=save_path,
+                        phase=f"{prefix}_{args.p1_step - 5000}-{args.p1_step}_score")
     print(args, netG_ckpt, netD_ckpt)
 
     trainer = _trainer(args, device, save_path, bundle, ds_train,
                        sample_weights=sample_weights, dataset_drs=ds_train,
                        netG_ckpt_file=str(netG_ckpt), netD_ckpt_file=str(netD_ckpt),
                        netD_drs_ckpt_file=str(netD_drs_ckpt), save_logits=False, gold=gold,
-                       gold_step=args.p1_step if gold else 0)
-    # the first resampled batch (reference :119-121)
-    src = trainer.source
-    imgs = src.gather(src.sample_indices(64, torch.Generator(device).manual_seed(0)))
-    save_image_grid(imgs.cpu().numpy(), save_path / f"{prefix}_resampled_train_data_p2.png")
+                       gold_step=args.p1_step if gold else 0, data_parallel=dp)
+    if is_main(dp):  # the first resampled batch (reference :119-121)
+        src = trainer.source
+        imgs = src.gather(src.sample_indices(64, torch.Generator(device).manual_seed(0)))
+        save_image_grid(imgs.cpu().numpy(), save_path / f"{prefix}_resampled_train_data_p2.png")
     print_num_params(bundle.gen, bundle.disc)
     trainer.train()
 
-    if dataset == "color_mnist":
+    if dataset == "color_mnist" and is_main(dp):
         from diagan_tpu_torch.eval.drs import DRS
         from diagan_tpu_torch.eval.evaluate import make_disc_fn, make_gen_fn
 
@@ -256,6 +260,7 @@ def phase2_gold(dataset, root, exp, argv=None):
         # declared and unused in the reference
         parser.add_argument("--use_eval_logits", type=int)
     args, device, save_path = _setup(parser, argv)
+    dp, device = data_parallel_from_args(args, device)
     baseline_save_path = Path(f"{args.work_dir}/{args.baseline_exp_name}")
     prefix = args.exp_name.split("/")[-1]
 
@@ -269,10 +274,10 @@ def phase2_gold(dataset, root, exp, argv=None):
 
     trainer = _trainer(args, device, save_path, bundle, ds_train,
                        netG_ckpt_file=str(netG_ckpt), netD_ckpt_file=str(netD_ckpt),
-                       save_logits=False, gold=True, gold_step=args.p1_step)
+                       save_logits=False, gold=True, gold_step=args.p1_step, data_parallel=dp)
     print_num_params(bundle.gen, bundle.disc)
     trainer.train()
-    if dataset == "color_mnist":
+    if dataset == "color_mnist" and is_main(dp):
         trainer.channel_counts = plot_color_mnist_generator(
             _gen_fn_from_trainer(trainer), save_path=save_path, file_name=f"{prefix}-eval_p2")
     return trainer

@@ -14,8 +14,14 @@ bfloat16; parameters, the mapping and D's head fp32), --remat (recompute
 each StyledConv / ToRGB and each D block in the backward), --stream_data
 (keep the dataset on the host and stream real batches through the native
 gather; automatic above 6 GiB). --no_fuse and --max_chunk are accepted and
-change nothing: the port runs one step at a time. --data_parallel is
-accepted and raises (not in the port yet).
+change nothing: the port runs one step at a time. --data_parallel trains
+over every rank of the process group, one process per card:
+
+    torchrun --standalone --nproc_per_node=N -m diagan_tpu_torch.cli.train_ffhq \
+        --data_parallel -d ffhq -r ./dataset/ffhq --size 256 --batch 16 ...
+
+(without torchrun, a world of one in process); --batch is per rank, as the
+reference's per GPU, and --no_fuse with it raises, as in the JAX trainer.
 """
 from __future__ import annotations
 
@@ -25,12 +31,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from diagan_tpu_torch.cli.common import data_parallel_from_args
 from diagan_tpu_torch.data.ffhq import load_ffhq
 from diagan_tpu_torch.device import resolve_device
 from diagan_tpu_torch.models.stylegan2 import StyleGAN2Discriminator, StyleGAN2Generator
 from diagan_tpu_torch.train.stylegan2_trainer import StyleGAN2Trainer
-
-NOT_PORTED = ("data_parallel",)
 
 
 def build_parser():
@@ -78,7 +83,8 @@ def build_parser():
     parser.add_argument("--max_chunk", default=None, type=int,
                         help="the JAX trainer's steps per dispatch; changes nothing in the port")
     parser.add_argument("--data_parallel", action="store_true",
-                        help="not in the port yet: raises")
+                        help="train over every rank of the process group (torchrun), or a "
+                             "world of one in process; --batch is per rank")
     parser.add_argument("--save_every", type=int, default=5000)
     parser.add_argument("--auto_resume", action="store_true")
     parser.add_argument("--device", type=str, default="cuda")
@@ -89,10 +95,7 @@ def make_trainer(args, sample_weights=None, drs=False, r1=None):
     """Build the trainer from parsed flags, and resume from --ckpt or, with
     --auto_resume, the latest checkpoint. Returns (trainer, start_step)."""
     device = resolve_device(args.device)
-    unported = [f"--{f}" for f in NOT_PORTED if getattr(args, f) not in (False, None)]
-    if unported:
-        raise NotImplementedError(f"{', '.join(unported)}: not in the port yet "
-                                  "(see ROADMAP.md, Queue A item 6)")
+    dp, device = data_parallel_from_args(args, device)
     torch.manual_seed(args.seed)
     np.random.seed(args.seed)
     output_dir = Path(args.work_dir) / args.exp_name
@@ -133,6 +136,7 @@ def make_trainer(args, sample_weights=None, drs=False, r1=None):
         fuse_steps=not args.no_fuse,
         max_chunk=args.max_chunk,
         device=device,
+        data_parallel=dp,
     )
     start = 0
     if args.ckpt:

@@ -11,8 +11,8 @@ and logit recording is off unless asked). It scores `logits_netD.pkl` of the
 baseline experiment over the 5000 steps before --p1_step, loads the phase-1
 checkpoint {p1_step:06d}.pt (drs_d starts from d) and trains on. That
 checkpoint may be the port's, the JAX package's or the reference's
-(StyleGAN2Trainer.load_ckpt); --bf16, --remat and --stream_data work as in
-phase 1.
+(StyleGAN2Trainer.load_ckpt); --bf16, --remat, --stream_data and
+--data_parallel work as in phase 1.
 """
 from __future__ import annotations
 

@@ -12,7 +12,10 @@ schedule overrides (cifar10: 50k steps, logits recorded every 100 steps over
 celeba_64.npy (or img_align_celeba/) and list_attr_celeba.txt; without
 them, a procedural stand-in (50k CIFAR images, 20k CelebA ones). Writes
 checkpoints/{netG,netD}/*_{step}_steps.pth and logits_netD_eval.pkl under
-{work_dir}/{exp_name}.
+{work_dir}/{exp_name}. --data_parallel trains over every rank of the process
+group (one process per card under `torchrun --standalone --nproc_per_node=N
+-m diagan_tpu_torch.cli.train_mimicry_phase1 --data_parallel ...`, else a
+world of one in process); --batch_size stays the global batch.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from pathlib import Path
 
 from diagan_tpu_torch.cli.common import (
     add_common_train_flags,
-    check_ported,
+    data_parallel_from_args,
     latest_ckpt_step,
     step_fusions_from_args,
 )
@@ -62,7 +65,7 @@ def main(argv=None):
     """Train phase 1; returns the trainer."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    check_ported(args)
+    dp, device = data_parallel_from_args(args, device)
     output_dir = f"{args.work_dir}/{args.exp_name}"
     save_path = Path(output_dir)
     save_path.mkdir(parents=True, exist_ok=True)
@@ -120,6 +123,7 @@ def main(argv=None):
         seed=args.seed,
         device=device,
         step_fusions=step_fusions_from_args(args),
+        data_parallel=dp,
     )
     print_num_params(bundle.gen, bundle.disc)
     return trainer.train()

@@ -14,7 +14,7 @@ Adam state and update count), turns GOLD on from --p1_step, and trains on
 to --num_steps without recording logits. The phase-1 files may be the
 port's, the JAX package's or the reference's (train/checkpoint.py
 restore_net: from a reference file Adam and the lr schedule start afresh, as
-in the JAX package).
+in the JAX package). --data_parallel as in phase 1.
 """
 from __future__ import annotations
 
@@ -23,7 +23,8 @@ from pathlib import Path
 
 from diagan_tpu_torch.cli.common import (
     add_common_train_flags,
-    check_ported,
+    data_parallel_from_args,
+    is_main,
     load_phase1_scores,
     phase1_ckpt_paths,
     resolve_phase2_resume,
@@ -61,7 +62,7 @@ def main(argv=None):
     """Train phase 2; returns the trainer."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    check_ported(args)
+    dp, device = data_parallel_from_args(args, device)
     output_dir = f"{args.work_dir}/{args.exp_name}"
     save_path = Path(output_dir)
     save_path.mkdir(parents=True, exist_ok=True)
@@ -87,7 +88,7 @@ def main(argv=None):
                            bf16=args.bf16, device=device)
     ds_train = get_predefined_dataset(dataset_name=args.dataset, root=args.root)
 
-    if not args.gold:
+    if not args.gold and is_main(dp):
         show_sorted_score_samples(ds_train, score=sample_weights, save_path=save_path,
                                   score_name=args.resample_score, plot_name=prefix)
     print(args)
@@ -116,6 +117,7 @@ def main(argv=None):
         weight_eps=1e-6,  # reference get_dataloader eps (:21-23)
         device=device,
         step_fusions=step_fusions_from_args(args),
+        data_parallel=dp,
     )
     print_num_params(bundle.gen, bundle.disc)
     return trainer.train()

@@ -84,10 +84,6 @@ _STYLEGAN2_G = stylegan2.StyleGAN2Generator
 _STYLEGAN2_D = stylegan2.StyleGAN2Discriminator
 
 
-def _not_ported(what):
-    return NotImplementedError(f"{what}: not in the port yet (see ROADMAP.md, Queue A)")
-
-
 def get_gan_model(dataset_name, model="sngan", loss_type="hinge", gold=False, drs=False,
                   topk=False, num_pack=1, device="cuda", **kwargs) -> GANBundle:
     device = resolve_device(device)
@@ -110,12 +106,10 @@ def get_gan_model(dataset_name, model="sngan", loss_type="hinge", gold=False, dr
         make_gen = toy.ToyGenerator
         make_disc = functools.partial(toy.ToyDiscriminator, use_sn=kwargs.get("use_sn", False))
         opt = OptSpec(1e-4, (0.5, 0.999))
-    elif dataset_name == "ffhq":
-        if kwargs.get("bf16"):
-            raise _not_ported("bf16 for ffhq")
+    elif dataset_name == "ffhq":  # bf16: the synthesis and D's backbone (models/stylegan2.py)
         size, nz, nc, model = kwargs.get("size", 256), 512, 3, "stylegan"
-        make_gen = functools.partial(_STYLEGAN2_G, size=size)
-        make_disc = functools.partial(_STYLEGAN2_D, size=size)
+        make_gen = functools.partial(_STYLEGAN2_G, size=size, dtype=dtype)
+        make_disc = functools.partial(_STYLEGAN2_D, size=size, dtype=dtype)
         opt = OptSpec(2e-4, (0.0, 0.9))
     else:
         raise ValueError(f"unknown dataset: {dataset_name}")

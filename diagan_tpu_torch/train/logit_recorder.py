@@ -14,7 +14,13 @@ the device. The sweep walks the dataset in order, in batches of
     last batch is padded to `batch_size` with copies of example 0, as the
     JAX package's full_sweep_index_batches pads it (the copies enter that
     batch's statistics), and the padded lanes are dropped. Each batch takes
-    fresh keep masks from `dropout_masks(batch_i, shapes)`.
+    fresh keep masks from `dropout_masks(batch_i, shapes)`, keyed by its
+    global batch id.
+Under data parallelism (`data_parallel`) the sweep is sharded as the JAX
+package's under a mesh: the batch list is padded to a multiple of the world
+size, each rank forwards its contiguous block of batches into a zero row,
+and an all_reduce(SUM) of the disjoint rows gives every rank the whole row,
+the one-process row bit for bit (x + 0 is x).
 Only pickling touches the host: `as_dict` gives the reference's {int step:
 np.float64[N]}, `save` pickles it, and `state_dict` / `load_state_dict`
 carry the buffer through a checkpoint.
@@ -26,11 +32,16 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from diagan_tpu_torch.parallel import rank_block
 
 
 class LogitRecorder:
-    def __init__(self, num_data, max_snapshots, batch_size=256, device="cuda"):
+    def __init__(self, num_data, max_snapshots, batch_size=256, device="cuda",
+                 data_parallel=None):
         self.num_data = num_data
+        self.data_parallel = data_parallel
         self.max_snapshots = max_snapshots
         self.batch_size = batch_size
         self.buffer = torch.zeros((max_snapshots, num_data), dtype=torch.float32, device=device)
@@ -44,9 +55,13 @@ class LogitRecorder:
         dropout_masks(batch_i, shapes) (DCGAN; None: D draws its own)."""
         was_training = disc.training
         disc.train(train)
-        row = torch.empty(self.num_data, dtype=torch.float32, device=self.buffer.device)
+        dp = self.data_parallel
+        row = torch.zeros(self.num_data, dtype=torch.float32, device=self.buffer.device)
         shapes = disc.dropout_shapes(self.batch_size) if hasattr(disc, "dropout_shapes") else ()
-        for b, lo in enumerate(range(0, self.num_data, self.batch_size)):
+        n_batches = -(-self.num_data // self.batch_size)
+        first, last = rank_block(n_batches, dp.rank, dp.world) if dp else (0, n_batches)
+        for b in range(first, last):
+            lo = b * self.batch_size
             n = min(self.batch_size, self.num_data - lo)
             idx = torch.arange(lo, lo + n, device=source.device)
             if train and n < self.batch_size:  # pad with copies of example 0
@@ -56,6 +71,8 @@ class LogitRecorder:
                 kwargs["dropout_masks"] = dropout_masks(b, shapes)
             row[lo:lo + n] = disc(source.gather(idx), **kwargs)[0][:n]
         disc.train(was_training)
+        if dp is not None:
+            dist.all_reduce(row, group=dp.group)
         return row
 
     def record(self, disc, source, global_step, train=False, dropout_masks=None):

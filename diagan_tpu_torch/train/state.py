@@ -13,6 +13,9 @@ sets each param group's lr from the net's own count before `step()`; the
 count travels in the checkpoint, so a restored net (also netD_drs cloned
 from netD's phase-1 file) continues its schedule and Adam's bias correction.
 optax adam(b1, b2, eps=1e-8) and torch.optim.Adam are the same arithmetic.
+Under data parallelism `apply_update` first averages every .grad across the
+ranks (parallel/dist.py all_reduce_grads_, the JAX steps' `pmean`): every
+gradient of the fused step reaches the optimizer here.
 
 `step` is the JAX NetState's step: it also counts the net's updates, and the
 trainer's global step is max(G's step, D's step // n_dis). The two differ
@@ -24,6 +27,8 @@ count, and with it the lr schedule and Adam's moments, starts again at 0
 from __future__ import annotations
 
 import torch
+
+from diagan_tpu_torch.parallel import all_reduce_grads_
 
 
 def linear_decay_schedule(lr, num_steps):
@@ -69,10 +74,12 @@ def load_adam_moments(optim, module, moments):
 
 class NetState:
     """A module, its Adam optimizer, its update count (the lr schedule's) and
-    its step (the JAX NetState's)."""
+    its step (the JAX NetState's). data_parallel: parallel.DataParallel or
+    None."""
 
-    def __init__(self, module, spec, num_steps, decay, updates_per_step=1):
+    def __init__(self, module, spec, num_steps, decay, updates_per_step=1, data_parallel=None):
         self.module = module
+        self.data_parallel = data_parallel
         self.optim = torch.optim.Adam(module.parameters(), lr=spec.lr, betas=tuple(spec.betas),
                                       eps=1e-8)
         self.schedule = make_schedule(spec.lr, num_steps, decay, updates_per_step)
@@ -80,7 +87,10 @@ class NetState:
         self.step = 0
 
     def apply_update(self):
-        """One Adam update from the gradients in .grad, at the lr of this count."""
+        """One Adam update from the gradients in .grad (averaged across the
+        ranks under data parallelism), at the lr of this count."""
+        if self.data_parallel is not None:
+            all_reduce_grads_(self.module, self.data_parallel)
         lr = self.schedule(self.count)
         for group in self.optim.param_groups:
             group["lr"] = lr

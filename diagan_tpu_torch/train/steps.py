@@ -65,8 +65,13 @@ shapes, device)` (DCGAN only, first in each iteration), `indices(kind, i,
 source, n)` (kind "real" or "drs"), `normal(kind, i, n, nz, device)` (kind
 "z_all" (fuse_g, once, i 0), "z", "drs_z" or "g_z") and `uniform(kind, i,
 n, device)`: `GeneratorDraws` over a torch.Generator seeded from (seed,
-global step), so a resumed run repeats the uninterrupted one; a test hands
-in the JAX package's draws instead.
+global step, rank), so a resumed run repeats the uninterrupted one; a test
+hands in the JAX package's draws instead.
+
+Data parallelism (the JAX step under shard_map): cfg.batch_size is the
+rank's batch, every draw and every loss term (GOLD, top-k, the fusions')
+acts on the local batch, and NetState.apply_update averages the gradients
+across the ranks before each Adam step (train/state.py).
 
 The g_aux_loss hook (the JAX package's, steps.py:140-142, 220-221): a
 callable g_aux_loss(gen, draws, i, metrics) -> loss term, called in the G
@@ -89,7 +94,7 @@ from diagan_tpu_torch.models.ssgan import SS_LOSS_SCALE_D, SS_LOSS_SCALE_G
 
 class StepConfig(NamedTuple):
     n_dis: int
-    batch_size: int
+    batch_size: int  # per rank under data parallelism
     nz: int
     loss_type: str
     drs_loss_type: str
@@ -131,14 +136,35 @@ class GeneratorDraws:
         return torch.rand((n,), generator=self.generator, device=device)
 
 
-def seeded_generator(seed, step, device):
-    """A torch.Generator on `device` seeded from (seed, step)."""
-    return torch.Generator(device).manual_seed(((seed << 32) + step) % 2**63)
+def _fold(key, x):
+    """Fold the integer x into a 63-bit seed (one LCG step)."""
+    return (key * 6364136223846793005 + 1442695040888963407 + x) % 2**63
 
 
-def step_draws(seed, global_step, device):
-    """The draws of step `global_step` of a run seeded with `seed`."""
-    return GeneratorDraws(seeded_generator(seed, global_step, device))
+def rank_seed(seed, rank):
+    """The seed of `rank`'s stream: rank 0 keeps `seed`, so a world of one
+    draws what the plain run draws (the JAX steps fold the device index
+    into their keys)."""
+    return _fold(seed, rank) if rank else seed
+
+
+def seeded_generator(seed, step, device, rank=0):
+    """A torch.Generator on `device` seeded from (seed, step), and under data
+    parallelism from the rank too (rank_seed)."""
+    return torch.Generator(device).manual_seed(rank_seed(((seed << 32) + step) % 2**63, rank))
+
+
+def batch_generator(seed, step, batch_id, device):
+    """A torch.Generator seeded from (seed, step, batch_id): a train-mode
+    logit sweep's keep masks per global batch id, so a sweep split over
+    ranks draws what the one-process sweep draws (the JAX sweep's
+    fold_in(key, batch_i))."""
+    return torch.Generator(device).manual_seed(_fold(((seed << 32) + step) % 2**63, batch_id))
+
+
+def step_draws(seed, global_step, device, rank=0):
+    """The draws of step `global_step` of a run seeded with `seed`, on `rank`."""
+    return GeneratorDraws(seeded_generator(seed, global_step, device, rank))
 
 
 def _grads_to(params, grads):

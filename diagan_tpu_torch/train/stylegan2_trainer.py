@@ -35,6 +35,22 @@ batch is copied to the card from pinned memory. The logit sweep then goes
 by host slabs of whole batches, the same batches of 64 as the resident
 sweep, so the two give the same logits bit for bit.
 
+Data parallelism (`data_parallel`, a parallel.DataParallel; the JAX
+trainer's mesh): `batch_size` is per rank, as the reference's --batch per
+GPU. Each rank draws from generators keyed by its rank (rank 0 keeps the
+plain run's streams), every gradient is averaged across the ranks between
+backward() and the Adam step (D, R1, G and path steps), and ADA tunes on
+the sum of sign(D(real)) over the ranks with the count batch x world, so p
+is the same on every rank. In stream mode every rank draws the global stack
+of batch x world indices from the same seeded samplers and gathers only its
+own slice (the JAX trainer splits its global host stack over the mesh). The
+logit sweep is sharded by contiguous blocks of batches and summed. pl_mean
+stays per rank, as the JAX trainer's unsynchronised copy and the reference's
+mean_path_length: rank 0 saves its own. Rank 0 alone writes checkpoints and
+logits while the others wait, and a SIGTERM on any rank stops every rank
+after the same step. fuse_steps=False with data parallelism raises, as in
+the JAX trainer.
+
 The TPU dispatch machinery of the JAX trainer (scanned chunks, the dispatch
 envelope, per-variant programs, shard_map) has no counterpart: the card runs
 the loop eagerly, one step at a time. `fuse_steps` and `max_chunk` are kept
@@ -61,6 +77,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from diagan_tpu_torch.data.sampler import (
     sample_uniform_indices,
@@ -76,8 +93,11 @@ from diagan_tpu_torch.models.losses import (
     r1_penalty,
 )
 from diagan_tpu_torch.native import NativeWeightedSampler, gather_u8
+from diagan_tpu_torch.parallel import all_reduce_grads_, all_reduce_mean_, broadcast_module, \
+    rank_block
 from diagan_tpu_torch.train.checkpoint import read_stylegan2_file
 from diagan_tpu_torch.train.state import load_adam_moments, load_moments
+from diagan_tpu_torch.train.steps import rank_seed
 
 EMA_DECAY = 0.5 ** (32 / (10 * 1000))
 SWEEP_SLAB_BYTES = 256 << 20  # host slab of a streamed logit sweep (whole batches)
@@ -182,13 +202,23 @@ class StyleGAN2Trainer:
         fuse_steps=True,  # the JAX trainer's dispatch options: no effect here
         max_chunk=None,
         device="cuda",
+        data_parallel=None,
     ):
         """gen / disc / drs_disc: the port's StyleGAN2 modules, already on
         `device`. dataset_images: uint8 (N, H, W, 3), copied to the device,
-        or in stream mode read from the host as it is."""
+        or in stream mode read from the host as it is. data_parallel:
+        parallel.DataParallel or None (module docstring)."""
+        if not fuse_steps and data_parallel is not None:
+            raise NotImplementedError("fuse_steps=False requires data_parallel=None (the JAX "
+                                      "trainer's mesh=None)")
         self.device = resolve_device(device)
+        self.dp = data_parallel
+        self.rank, self.world = (data_parallel.rank, data_parallel.world) if data_parallel \
+            else (0, 1)
+        self.is_main = self.rank == 0
         self.output_path = Path(output_path)
-        self.output_path.mkdir(parents=True, exist_ok=True)
+        if self.is_main:
+            self.output_path.mkdir(parents=True, exist_ok=True)
         self.gen, self.disc, self.drs_disc = gen, disc, drs_disc
         self.num_steps = num_steps
         self.batch_size = batch_size
@@ -227,6 +257,9 @@ class StyleGAN2Trainer:
         self.weights = (weights_from_scores(sample_weights, self.device)
                         if sample_weights is not None else None)
 
+        if data_parallel is not None:  # every replica starts from rank 0's nets
+            for m in self._modules(gen, disc, drs_disc):
+                broadcast_module(m, data_parallel)
         self.g_ema = copy.deepcopy(gen).eval().requires_grad_(False)
         self.g_optim = reg_ratio_adam(gen.parameters(), lr, g_reg_every)
         self.d_optim = reg_ratio_adam(disc.parameters(), lr, d_reg_every)
@@ -241,10 +274,20 @@ class StyleGAN2Trainer:
                     if self.use_augment and augment_p == 0 else None)
         self.ada_aug_p = float(augment_p) if self.use_augment else 0.0
 
-        self.rng = torch.Generator(self.device).manual_seed(seed)  # device draws
-        self.host_rng = torch.Generator().manual_seed(seed)  # cutoff, ADA matrices
+        seed_r = rank_seed(seed, self.rank)
+        self.rng = torch.Generator(self.device).manual_seed(seed_r)  # device draws
+        self.host_rng = torch.Generator().manual_seed(seed_r)  # cutoff, ADA matrices
         self.logit_results = {}
         self.metrics = {}  # the last step's metrics, r1/path from the last reg step
+
+    @staticmethod
+    def _modules(*mods):
+        return [m for m in mods if m is not None]
+
+    def _reduce_grads(self, module):
+        """Average `module`'s gradients across the ranks (data parallelism)."""
+        if self.dp is not None:
+            all_reduce_grads_(module, self.dp)
 
     # ------------------------------------------------------------------
     # draws
@@ -263,12 +306,13 @@ class StyleGAN2Trainer:
     def draw_real(self, weighted):
         """A batch of reals in [-1, 1], NHWC; weighted by the phase-2 scores
         when `weighted` and the trainer has them, else uniform."""
-        if self.stream:
+        if self.stream:  # the global stack's indices, this rank's slice gathered
+            bs, n = self.batch_size, self.batch_size * self.world
             if weighted and self._w_sampler is not None:
-                idx = self._w_sampler.sample(self.batch_size)
+                idx = self._w_sampler.sample(n)
             else:
-                idx = self._u_rng.integers(0, self.num_data, self.batch_size)
-            return self._staging(self.images_np, idx)
+                idx = self._u_rng.integers(0, self.num_data, n)
+            return self._staging(self.images_np, idx[self.rank * bs:(self.rank + 1) * bs])
         if weighted and self.weights is not None:
             idx = sample_weighted_indices(self.weights, self.batch_size, self.rng)
         else:
@@ -305,6 +349,7 @@ class StyleGAN2Trainer:
         loss = d_logistic_loss(rp, fp)
         optim.zero_grad(set_to_none=True)
         loss.backward()
+        self._reduce_grads(disc)
         optim.step()
         rp = rp.detach()
         return {"d": loss.detach(), "real_score": rp.mean(), "fake_score": fp.detach().mean(),
@@ -315,6 +360,7 @@ class StyleGAN2Trainer:
         pen = r1_penalty(disc(real)[0], real)
         optim.zero_grad(set_to_none=True)
         (self.r1_weight / 2 * pen * self.d_reg_every).backward()
+        self._reduce_grads(disc)
         optim.step()
         return {"r1": pen.detach()}
 
@@ -324,6 +370,7 @@ class StyleGAN2Trainer:
             loss = g_nonsaturating_loss(self.disc(self._augment(self._fake(fake_draws), aug))[0])
             self.g_optim.zero_grad(set_to_none=True)
             loss.backward()
+            self._reduce_grads(self.gen)
             self.g_optim.step()
         finally:
             self.disc.requires_grad_(True)
@@ -341,6 +388,7 @@ class StyleGAN2Trainer:
         loss = self.path_regularize * self.g_reg_every * pen + 0.0 * imgs[:1].sum()
         self.g_optim.zero_grad(set_to_none=True)
         loss.backward()
+        self._reduce_grads(self.gen)
         self.g_optim.step()
         self.pl_mean = new_mean.detach()
         self.update_ema()
@@ -379,21 +427,23 @@ class StyleGAN2Trainer:
 
     # ------------------------------------------------------------------
     # logits, checkpoints, loop
-    def _sweep_batches(self, batch):
-        """The sweep's real batches: `batch` consecutive indices each, the
-        last batch padded with the last index (the minibatch-stddev groups
-        then match the JAX sweep's). In stream mode they come in host slabs
-        of whole batches, one copy to the device a slab."""
+    def _sweep_batches(self, batch, first, last):
+        """The sweep's real batches `first` .. `last` - 1: `batch` consecutive
+        indices each, the last batch padded with the last index (the
+        minibatch-stddev groups then match the JAX sweep's). In stream mode
+        they come in host slabs of whole batches, one copy to the device a
+        slab."""
         n = self.num_data
         if not self.stream:
-            for lo in range(0, n, batch):
-                idx = torch.arange(lo, lo + batch, device=self.device).clamp_(max=n - 1)
+            for b in range(first, last):
+                idx = torch.arange(b * batch, (b + 1) * batch,
+                                   device=self.device).clamp_(max=n - 1)
                 yield self.real_batch(idx)
             return
-        per_slab = max(1, SWEEP_SLAB_BYTES // (batch * self.images_np[0].nbytes)) * batch
-        for lo in range(0, n, per_slab):
-            nb = -(-min(per_slab, n - lo) // batch)
-            idx = np.arange(lo, lo + nb * batch).clip(max=n - 1)
+        per_slab = max(1, SWEEP_SLAB_BYTES // (batch * self.images_np[0].nbytes))
+        for b0 in range(first, last, per_slab):
+            nb = min(per_slab, last - b0)
+            idx = np.arange(b0 * batch, (b0 + nb) * batch).clip(max=n - 1)
             slab = torch.from_numpy(gather_u8(self.images_np, idx)).to(self.device)
             for b in range(nb):
                 yield slab[b * batch:(b + 1) * batch].float() / 127.5 - 1.0
@@ -401,12 +451,21 @@ class StyleGAN2Trainer:
     @torch.no_grad()
     def _record_logits(self, step, batch=64):
         """Full-dataset sweep of D (phase 1) or drs_d (phase 2), batch by
-        batch (`_sweep_batches`)."""
+        batch (`_sweep_batches`); under data parallelism each rank sweeps
+        its contiguous block of batches and the disjoint rows are summed."""
         disc = self.drs_disc if self.drs_disc is not None else self.disc
         name = "netD_drs" if self.drs_disc is not None else "netD"
-        out = [disc(x)[0] for x in self._sweep_batches(batch)]
-        logits = torch.cat(out)[: self.num_data].double().cpu().numpy()
-        self.logit_results.setdefault(f"{name}_eval", {})[step] = logits
+        n = self.num_data
+        n_batches = -(-n // batch)
+        first, last = rank_block(n_batches, self.rank, self.world)
+        row = torch.zeros(n, dtype=torch.float32, device=self.device)
+        out = [disc(x)[0] for x in self._sweep_batches(batch, first, last)]
+        if out:
+            lo, hi = first * batch, min(last * batch, n)
+            row[lo:hi] = torch.cat(out)[:hi - lo]
+        if self.dp is not None:
+            dist.all_reduce(row, group=self.dp.group)
+        self.logit_results.setdefault(f"{name}_eval", {})[step] = row.double().cpu().numpy()
 
     def _save_ckpt(self, step):
         payload = {
@@ -430,6 +489,13 @@ class StyleGAN2Trainer:
             with open(self.output_path / f"logits_{nm.split('_')[0]}.pkl", "wb") as f:
                 pickle.dump({k: np.float64(v) for k, v in res.items()}, f)
         return path
+
+    def _flush(self, step):
+        """Rank 0 writes the checkpoint and logits while the others wait."""
+        if self.is_main:
+            self._save_ckpt(step)
+        if self.dp is not None:
+            self.dp.barrier()
 
     def find_latest_ckpt(self):
         d = self.output_path / "checkpoint"
@@ -461,6 +527,9 @@ class StyleGAN2Trainer:
         self.ada_aug_p = float(raw.get("ada_aug_p", 0.0))
         if self.ada is not None:
             self.ada.ada_aug_p = self.ada_aug_p
+        if self.dp is not None:  # every replica resumes from rank 0's nets
+            for m in self._modules(self.gen, self.disc, self.drs_disc, self.g_ema):
+                broadcast_module(m, self.dp)
         return int(raw.get("step", 0))
 
     def train(self, start_step=0):
@@ -475,32 +544,48 @@ class StyleGAN2Trainer:
         old_handler = signal.signal(signal.SIGTERM, on_sigterm)
         self._step = start_step
         try:
-            while self._step < self.num_steps and not stop["flag"]:
+            while self._step < self.num_steps and not self._stopping(stop["flag"]):
                 metrics = self.train_step(self._step)
                 self._step += 1
                 if self.ada is not None:
-                    self.ada_aug_p = self.ada.tune(float(metrics["sign_real"]), self.batch_size)
+                    self.tune_ada(metrics)
                 self._after_step(self._step, metrics)
-            if stop["flag"] and self._step < self.num_steps:
+            if self._step < self.num_steps:
                 print(f"INFO: SIGTERM, flushing checkpoint at step {self._step}", flush=True)
-                self._save_ckpt(self._step)
+                self._flush(self._step)
             else:
-                self._save_ckpt(self.num_steps)
+                self._flush(self.num_steps)
         except KeyboardInterrupt:
             print("INFO: Saving checkpoints from keyboard interrupt...", flush=True)
-            self._save_ckpt(self._step)
+            self._flush(self._step)
         finally:
             signal.signal(signal.SIGTERM, old_handler)
         return self
 
+    def tune_ada(self, metrics):
+        """Adaptive ADA's update from one step's metrics: sign_real summed
+        over the ranks (replaced in `metrics`), with the count batch x world,
+        so p is the same on every rank."""
+        if self.dp is not None:
+            metrics["sign_real"] = metrics["sign_real"].clone()
+            dist.all_reduce(metrics["sign_real"], group=self.dp.group)
+        self.ada_aug_p = self.ada.tune(float(metrics["sign_real"]), self.batch_size * self.world)
+
+    def _stopping(self, flag):
+        """The SIGTERM flag, on every rank if any rank has it."""
+        return self.dp.any(flag) if self.dp is not None else flag
+
     def _after_step(self, step, metrics):
         self.metrics.update({k: v for k, v in metrics.items() if k != "sign_real"})
         if step % self.log_every == 0:
+            if self.dp is not None:  # the logged metrics averaged over the ranks
+                all_reduce_mean_(list(self.metrics.values()), self.dp)
             parts = "; ".join(f"{k}: {float(v):.4f}" for k, v in self.metrics.items())
-            print(f"step {step}: {parts}; ada_p: {self.ada_aug_p:.4f}", flush=True)
+            if self.is_main:
+                print(f"step {step}: {parts}; ada_p: {self.ada_aug_p:.4f}", flush=True)
         if (self.logit_save_steps and step % self.logit_save_steps == 0
                 and self.save_logit_after <= step <= self.stop_save_logit_after
                 and step < self.num_steps):
             self._record_logits(step)
         if step % self.save_every == 0 and step < self.num_steps:
-            self._save_ckpt(step)
+            self._flush(step)

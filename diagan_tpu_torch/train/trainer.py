@@ -28,11 +28,24 @@ As the JAX trainer (and reference diagan-pkg/diagan/trainer/trainer.py):
 
 Each step's draws come from a torch.Generator seeded from (seed, step)
 (train/steps.py:step_draws), so a resumed run repeats the uninterrupted one;
-a train-mode sweep's keep masks from one seeded from (seed + 2, step), the
-toy's scatter latents from one seeded from (seed + 3, step).
+a train-mode sweep's keep masks from one per batch seeded from (seed + 2,
+step, batch id), the toy's scatter latents from one seeded from (seed + 3,
+step).
+
+Data parallelism (`data_parallel`, a parallel.DataParallel; the JAX
+trainer's `mesh`): `batch_size` stays the global batch, each rank trains
+batch_size // world (indivisible raises) on its own draws (keyed by rank;
+rank 0 keeps the plain run's), epoch_steps comes from the global batch, and
+every gradient is averaged before each Adam step (train/state.py). Rank 0's
+nets are broadcast after construction and restore. The BatchNorm running
+statistics are averaged before each read (sweep, checkpoint, sample grid,
+end of train()), the logged metrics at print and log steps; the sweep is
+sharded (train/logit_recorder.py). Rank 0 alone writes checkpoints, the
+logit buffer, pickles, scalars and grids while the others wait at a
+barrier, and a SIGTERM on any rank stops every rank after the same step.
 The JAX trainer's dispatch machinery (scanned chunks, the sweep folded into a
-chunk, the mesh, the profiler hook) has no counterpart: the card runs the
-loop eagerly, and metrics reach the host only at log and print steps.
+chunk, the profiler hook) has no counterpart: the card runs the loop
+eagerly, and metrics reach the host only at log and print steps.
 """
 from __future__ import annotations
 
@@ -45,12 +58,14 @@ import torch
 
 from diagan_tpu_torch.data.pipeline import DeviceDataSource
 from diagan_tpu_torch.device import resolve_device
+from diagan_tpu_torch.parallel import all_reduce_mean_, broadcast_module, sync_buffers
 from diagan_tpu_torch.train import checkpoint as ckpt
 from diagan_tpu_torch.train.logger import Logger
 from diagan_tpu_torch.train.logit_recorder import LogitRecorder
 from diagan_tpu_torch.train.state import NetState, make_schedule
 from diagan_tpu_torch.train.steps import (
     StepConfig,
+    batch_generator,
     draw_keep_masks,
     make_fused_step,
     seeded_generator,
@@ -92,6 +107,7 @@ class LogTrainer:
         device="cuda",
         g_aux_loss=None,
         step_fusions=None,
+        data_parallel=None,
     ):
         """bundle: models.registry.GANBundle (its modules are moved to
         `device`). dataset: data.arrays.ArrayDataset of uint8 images, or
@@ -99,8 +115,16 @@ class LogTrainer:
         G-loss term for the fused step (train/steps.py; Inclusive GAN's,
         train/inclusive.py), or None. step_fusions: {"concat_d", "fuse_g",
         "simultaneous_g"} -> bool for the fused step (train/steps.py), all
-        off by default."""
+        off by default. data_parallel: parallel.DataParallel or None (module
+        docstring)."""
         self.device = resolve_device(device)
+        self.dp = data_parallel
+        self.rank, self.world = (data_parallel.rank, data_parallel.world) if data_parallel \
+            else (0, 1)
+        self.is_main = self.rank == 0
+        if batch_size % self.world:
+            raise ValueError(f"batch_size {batch_size} must divide evenly over the "
+                             f"{self.world} data-parallel ranks")
         self.output_path = Path(output_path)
         self.log_dir = Path(log_dir or output_path)
         self.num_steps = num_steps
@@ -128,7 +152,8 @@ class LogTrainer:
 
         # ---- nets and their Adam (schedules by each net's update count) --
         def net(module, spec, updates_per_step):
-            return NetState(module.to(self.device), spec, num_steps, lr_decay, updates_per_step)
+            return NetState(module.to(self.device), spec, num_steps, lr_decay, updates_per_step,
+                            data_parallel)
 
         self.g = net(bundle.gen, bundle.opt_g, 1)
         self.d = net(bundle.disc, bundle.opt_d, n_dis)
@@ -151,39 +176,67 @@ class LogTrainer:
         if netD_drs_ckpt_file and self.train_drs:
             # clone of netD's phase-1 weights (train_mimicry_phase2.py:98-101)
             ckpt.restore_net(self.d_drs, netD_drs_ckpt_file)
+        if data_parallel is not None:  # every replica starts from rank 0's nets
+            for m in self._modules():
+                broadcast_module(m, data_parallel)
 
         self.cfg = StepConfig(
-            n_dis=n_dis, batch_size=batch_size, nz=bundle.nz, loss_type=bundle.loss_type,
-            drs_loss_type=bundle.drs_loss_type, model=bundle.model, gold=gold,
-            gold_step=self.gold_step, topk=topk, epoch_steps=self.epoch_steps,
+            n_dis=n_dis, batch_size=batch_size // self.world, nz=bundle.nz,
+            loss_type=bundle.loss_type, drs_loss_type=bundle.drs_loss_type, model=bundle.model,
+            gold=gold, gold_step=self.gold_step, topk=topk, epoch_steps=self.epoch_steps,
             use_drs=self.train_drs, **dict(step_fusions or {}))
         self.fused_step = make_fused_step(self.g, self.d, self.d_drs, self.cfg, self.source,
                                           self.source_drs, g_aux_loss=g_aux_loss)
 
         # ---- logit recorder ---------------------------------------------
         n_snaps = (stop_save_logit_after - save_logit_after) // max(1, logit_save_steps) + 2
-        self.recorder = LogitRecorder(self.num_data, max(n_snaps, 2), device=self.device)
+        self.recorder = LogitRecorder(self.num_data, max(n_snaps, 2), device=self.device,
+                                      data_parallel=data_parallel)
         self._record_name = "{}_{}".format("netD_drs" if self.train_drs else "netD",
                                            "eval" if save_eval_logits else "train")
         if self.global_step and save_logits:
             self._maybe_restore_logit_buffer()
-        self.logger = Logger(self.log_dir)
+        self.logger = Logger(self.log_dir) if self.is_main else None
 
         # sample-grid latents fixed across training (mimicry-style)
         self._vis_z = torch.randn((64, bundle.nz), device=self.device,
                                   generator=torch.Generator(self.device).manual_seed(seed + 1))
 
     # ------------------------------------------------------------------
+    def _modules(self):
+        return [n.module for n in (self.g, self.d, self.d_drs) if n is not None]
+
+    def _sync_state(self):
+        """Average the nets' BatchNorm running statistics across the ranks
+        (before each read of them)."""
+        if self.dp is not None:
+            for m in self._modules():
+                sync_buffers(m, self.dp)
+
+    def _mean_metrics(self, metrics):
+        """Average the metrics across the ranks in place (at print and log
+        steps)."""
+        if self.dp is not None:
+            all_reduce_mean_([v for v in metrics.values() if torch.is_tensor(v)], self.dp)
+
+    def _main_writes(self, write, *args):
+        """write(*args) on rank 0 while the other ranks wait."""
+        if self.is_main:
+            write(*args)
+        if self.dp is not None:
+            self.dp.barrier()
+
     def _logit_window(self, step):
         return (self.save_logits and step % self.logit_save_steps == 0
                 and self.save_logit_after <= step <= self.stop_save_logit_after)
 
     def _record_logits(self, step):
         disc = (self.d_drs if self.train_drs else self.d).module
-        gen = seeded_generator(self.seed + 2, step, self.device)
+        self._sync_state()
         self.recorder.record(disc, self.source, step, train=not self.save_eval_logits,
-                             dropout_masks=lambda b, shapes: draw_keep_masks(shapes, gen,
-                                                                             self.device))
+                             dropout_masks=lambda b, shapes: draw_keep_masks(
+                                 shapes, batch_generator(self.seed + 2, step, b, self.device),
+                                 self.device))
 
     def _save_checkpoints(self, step):
         ckpt_dir = self.log_dir / "checkpoints"
@@ -211,9 +264,10 @@ class LogTrainer:
             self.recorder.save(self.output_path / f"logits_{self._record_name}.pkl")
 
     def _flush(self, step):
-        self._save_checkpoints(step)
+        self._sync_state()
+        self._main_writes(self._save_checkpoints, step)
         if self.save_logits and step >= self.save_logit_after:
-            self._save_logit_pickles()
+            self._main_writes(self._save_logit_pickles)
 
     @torch.no_grad()
     def generate_images(self, z=None, n=64):
@@ -224,6 +278,10 @@ class LogTrainer:
         return out
 
     def _visualize(self, step):
+        self._sync_state()
+        self._main_writes(self._write_samples, step)
+
+    def _write_samples(self, step):
         if self.bundle.image_size:
             self.logger.vis_images(step, self.generate_images().cpu().numpy())
         elif self.bundle.dataset == "25gaussian":  # reference trainer.py:318-322
@@ -239,6 +297,10 @@ class LogTrainer:
             row[name] = float(sched(step))
         return row
 
+    def _stopping(self, flag):
+        """The SIGTERM flag, on every rank if any rank has it."""
+        return self.dp.any(flag) if self.dp is not None else flag
+
     # ------------------------------------------------------------------
     def train(self):
         step = self.global_step
@@ -252,15 +314,20 @@ class LogTrainer:
         start_time, start_step = time.time(), step
         self.metrics = {}
         try:
-            while step < self.num_steps and not interrupted["flag"]:
-                self.metrics = self.fused_step(step, step_draws(self.seed, step, self.device))
+            while step < self.num_steps and not self._stopping(interrupted["flag"]):
+                self.metrics = self.fused_step(step, step_draws(self.seed, step, self.device,
+                                                                self.rank))
                 step += 1
-                if step % self.log_steps == 0:
+                if step % self.log_steps == 0 or step % self.print_steps == 0:
+                    self._mean_metrics(self.metrics)
+                if step % self.log_steps == 0 and self.is_main:
                     self.logger.write_scalars(step, self._scalars(self.metrics, step))
                 if step % self.print_steps == 0:
                     now = time.time()
-                    self.logger.print_log(step, self.num_steps, self._scalars(self.metrics, step),
-                                          (now - start_time) / max(1, step - start_step))
+                    if self.is_main:
+                        self.logger.print_log(step, self.num_steps,
+                                              self._scalars(self.metrics, step),
+                                              (now - start_time) / max(1, step - start_step))
                     start_time, start_step = now, step
                 if step % self.vis_steps == 0:
                     self._visualize(step)
@@ -277,7 +344,8 @@ class LogTrainer:
             self._flush(step)
         finally:
             signal.signal(signal.SIGTERM, old_handler)
-            self.logger.close()
+            if self.logger is not None:
+                self.logger.close()
         self.global_step = step
         print("INFO: Training Ended.")
         return self

@@ -15,8 +15,10 @@ counterpart.
   bf16 modules' own distance from their fp32: 2.3e-3, 7.4e-3, 1.0e-2).
 - remat: the same state_dict keys, and the same losses and gradients, bit
   for bit on the CPU, for the D, R1, G and path steps, fp32 and bf16.
-- --no_fuse / --max_chunk 1 against neither: the same losses over two steps,
-  bit for bit; the CLIs with every flag through phase 1 and phase 2.
+- --no_fuse / --max_chunk 1 / --data_parallel (world 1, in process)
+  against none: the same losses and weights over two steps, bit for bit;
+  --no_fuse with --data_parallel raises, as in the JAX trainer; the CLIs
+  with every flag through phase 1 and phase 2.
 - prepare_npy and cli.prepare_data against the JAX package and
   stylegan2/prepare_data.py: the same bytes and the same argparse surface.
 
@@ -338,6 +340,25 @@ def test_remat_keeps_keys_losses_and_gradients(tmp_path, dtype):
 
 
 # --- the CLIs ---------------------------------------------------------------
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_registry_ffhq_bundle_takes_bf16(bf16, monkeypatch):
+    """get_gan_model("ffhq", bf16=...) builds G's synthesis and D's backbone
+    in the dtype the JAX registry gives its StyleGAN2 modules."""
+    from diagan_tpu.models import registry as JR
+    from diagan_tpu_torch.models import registry as TR
+
+    monkeypatch.setattr(TR, "_STYLEGAN2_G", functools.partial(
+        T.StyleGAN2Generator, style_dim=STYLE_DIM, n_mlp=N_MLP, width_scale=WIDTH))
+    monkeypatch.setattr(TR, "_STYLEGAN2_D", functools.partial(
+        T.StyleGAN2Discriminator, width_scale=WIDTH))
+    want = JR.get_gan_model("ffhq", bf16=bf16, size=SIZE)
+    got = TR.get_gan_model("ffhq", bf16=bf16, size=SIZE, drs=True, device="cpu")
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    assert want.gen.dtype == want.disc.dtype == (jnp.bfloat16 if bf16 else jnp.float32)
+    assert got.gen.synthesis.dtype == got.disc.dtype == got.disc_drs.dtype == dtype
+    assert all(p.dtype == torch.float32 for p in got.gen.parameters())
+
+
 def _small_models(monkeypatch):
     monkeypatch.setattr(train_ffhq, "StyleGAN2Generator", functools.partial(
         T.StyleGAN2Generator, style_dim=STYLE_DIM, n_mlp=N_MLP, width_scale=WIDTH))
@@ -355,27 +376,31 @@ def _cli_args(tmp_path, n=24):
 
 
 def test_dispatch_flags_change_nothing(tmp_path, monkeypatch):
-    """--no_fuse and --max_chunk 1 give the plain run's losses over two
-    steps, bit for bit; --data_parallel still raises."""
+    """--no_fuse, --max_chunk 1 and --data_parallel (a world of one) give the
+    plain run's losses and weights over two steps, bit for bit; --no_fuse
+    with --data_parallel raises, as the JAX trainer does."""
     _small_models(monkeypatch)
     common = _cli_args(tmp_path) + ["--iter", "2", "--logit_save_steps", "0"]
     step = TT.StyleGAN2Trainer.train_step
     losses = []
     monkeypatch.setattr(TT.StyleGAN2Trainer, "train_step", lambda self, s: losses[-1].append(
         {k: float(v) for k, v in step(self, s).items()}) or {})
-    runs = {}
+    runs, weights = {}, {}
     for name, flags in (("plain", []), ("no_fuse", ["--no_fuse"]),
-                        ("max_chunk", ["--max_chunk", "1"])):
+                        ("max_chunk", ["--max_chunk", "1"]), ("dp", ["--data_parallel"])):
         losses.append([])
         tr = train_ffhq.main(common + ["--exp_name", name] + flags)
         runs[name] = losses[-1]
+        weights[name] = [t for m in (tr.gen, tr.disc, tr.g_ema) for t in m.state_dict().values()]
         assert (tr.fuse_steps, tr.max_chunk) == (name != "no_fuse",
                                                   1 if name == "max_chunk" else None)
+        assert (tr.dp is None) == (name != "dp")
     assert len(runs["plain"]) == 2 and "r1" in runs["plain"][0]
-    assert runs["no_fuse"] == runs["plain"] == runs["max_chunk"]
-    with pytest.raises(NotImplementedError, match="--data_parallel"):
-        train_ffhq.main(common + ["--exp_name", "dp", "--data_parallel"])
-    assert train_ffhq.NOT_PORTED == ("data_parallel",)
+    assert runs["no_fuse"] == runs["plain"] == runs["max_chunk"] == runs["dp"]
+    assert tr.dp.world == 1 and tr.dp.bytes_all_reduced > 0
+    assert all(torch.equal(a, b) for a, b in zip(weights["plain"], weights["dp"]))
+    with pytest.raises(NotImplementedError, match="fuse_steps=False requires"):
+        train_ffhq.main(common + ["--exp_name", "dp_no_fuse", "--data_parallel", "--no_fuse"])
 
 
 def test_cli_flags_through_both_phases(tmp_path, monkeypatch):

@@ -493,13 +493,19 @@ class CliFeaturizer:
             return self.model(TI.inception_input(images, "cpu"))[0].numpy() * 2.0 - 1.0
 
 
-def test_inclusive_cli_then_train_cae_inclusive(mnist_dir, monkeypatch):
+def _small_inclusive_cli(monkeypatch):
+    """The Inclusive CLI with the stand-in featurizer at 75 px, a refresh
+    every epoch and 100 colour samples."""
     monkeypatch.setattr(TI, "INCEPTION_SIZE", 75)
     monkeypatch.setattr(TINC, "InceptionFeaturizer", CliFeaturizer)
     monkeypatch.setattr(train_mimicry_inclusive, "InclusiveTrainer", functools.partial(
         TINC.InclusiveTrainer, refresh_multiplier=1))
     monkeypatch.setattr(train_mimicry_inclusive, "plot_color_mnist_generator",
                         functools.partial(TPL.plot_color_mnist_generator, num_images=100))
+
+
+def test_inclusive_cli_then_train_cae_inclusive(mnist_dir, monkeypatch):
+    _small_inclusive_cli(monkeypatch)
     refreshed = []
     refresh = TINC.InclusiveTrainer.refresh_nearest_latents
     monkeypatch.setattr(TINC.InclusiveTrainer, "refresh_nearest_latents",
@@ -520,6 +526,27 @@ def test_inclusive_cli_then_train_cae_inclusive(mnist_dir, monkeypatch):
         "incl", "--netG_step", "4", "--epochs", "2", "--batch_size", "32", "--num_data", "24",
         "--seed", "3"], monkeypatch)
     assert used == ["Sampler"] and re.shape == (24, 2) and np.isfinite(re).all()
+
+
+def test_inclusive_cli_data_parallel_changes_nothing(mnist_dir, monkeypatch):
+    """--data_parallel is accepted and changes nothing, as in the root
+    train_mimicry_inclusive.py, which never reads it: no process group, and
+    the plain run's weights, Adam state, counts and logit rows, bit for bit."""
+    _small_inclusive_cli(monkeypatch)
+    argv = ["--device", "cpu", "--num_data", "24", "--batch_size", "8", "--num_steps", "4",
+            "--logit_save_steps", "2", "--seed", "3"]
+    runs = {name: train_mimicry_inclusive.main(argv + ["--exp_name", name] + extra)
+            for name, extra in (("plain", []), ("dp", ["--data_parallel"]))}
+    state = {}
+    for name, tr in runs.items():
+        assert tr.dp is None and tr.world == 1
+        nets = (tr.g, tr.d)
+        state[name] = ([t for n in nets for t in n.module.state_dict().values()]
+                       + [t for n in nets for st in n.optim.state.values() for t in st.values()]
+                       + [torch.tensor([n.count, n.step]) for n in nets]
+                       + [tr.recorder.buffer[:tr.recorder.count], tr.inclusive.nearest_latent])
+    assert len(state["plain"]) == len(state["dp"]) > 10
+    assert all(torch.equal(a, b) for a, b in zip(state["plain"], state["dp"]))
 
 
 @pytest.mark.parametrize("entry", [

@@ -211,7 +211,7 @@ def test_auto_resume_is_bit_for_bit(mnist_dir):
     """Phase 1 to step 3, then --auto_resume to step 6, against 6 steps in
     one run: the same weights (BatchNorm statistics included), Adam state,
     update counts and train-mode logits (the step's draws and dropout masks
-    come from (seed, step), a sweep's masks from (seed + 2, step))."""
+    come from (seed, step), a sweep's masks from (seed + 2, step, batch))."""
     exp = mnist_dir / "exp_results"
     train_mimicry_color_mnist_phase1.main(COMMON + PHASE1 + ["--exp_name", "full"])
     short = train_mimicry_color_mnist_phase1.main(COMMON + ["--num_steps", "3",

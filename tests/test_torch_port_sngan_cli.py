@@ -11,8 +11,9 @@ run directory: its G(z) and netD_drs(x) equal the port's eval closures at
 port's registry (and, for the JAX side, a dataclasses.replace of its bundle:
 no file of the JAX package changes); batch 4, n_dis 2. Also: a run stopped
 by SIGTERM flushes a checkpoint that resumes to the uninterrupted run's bits,
-the flag that is not in the port yet (--data_parallel) raises, and the CLIs
-keep the root scripts' argparse surfaces plus --device.
+--data_parallel at world 1 (a gloo group of one, in process) reproduces the
+plain run bit for bit, and the CLIs keep the root scripts' argparse surfaces
+plus --device.
 """
 import dataclasses
 import functools
@@ -200,12 +201,39 @@ def test_sigterm_flushes_a_checkpoint_that_resumes_bit_for_bit(narrow, tmp_path,
                 assert torch.equal(sa[k][field], sb[k][field]), (net, k, field)
 
 
+def _trainer_state(tr):
+    """Every net's weights and buffers, Adam state and counts, and the logit
+    buffer of a LogTrainer."""
+    nets = [n for n in (tr.g, tr.d, tr.d_drs) if n is not None]
+    return ([t for n in nets for t in n.module.state_dict().values()]
+            + [t for n in nets for s in n.optim.state.values() for t in s.values()]
+            + [torch.tensor([n.count, n.step]) for n in nets]
+            + [tr.recorder.buffer[:tr.recorder.count]])
+
+
 @pytest.mark.parametrize("flag", ["--data_parallel"])
 @pytest.mark.parametrize("cli", [train_mimicry_phase1, train_mimicry_phase2],
                          ids=["phase1", "phase2"])
-def test_flags_not_in_the_port_raise(cli, flag, narrow):
-    with pytest.raises(NotImplementedError, match="not in the port yet"):
-        cli.main(narrow + ["--exp_name", "x", flag])
+def test_flags_not_in_the_port_raise(cli, flag, narrow, tmp_path):
+    """--data_parallel, once not in the port, trains at world 1 (a gloo
+    group of one in process): the plain run's weights, BatchNorm statistics,
+    Adam state, counts, logit rows and pickles, bit for bit."""
+    if cli is train_mimicry_phase2:
+        train_mimicry_phase1.main(narrow + PHASE1)
+        args = ["--baseline_exp_name", "p1", "--p1_step", "6", "--num_steps", "9",
+                "--resample_score", "ldr_conf_1.0_ratio_50"]
+    else:
+        args = PHASE1[2:]
+    runs = {name: cli.main(narrow + ["--exp_name", name] + args + extra)
+            for name, extra in (("plain", []), ("dp", [flag]))}
+    assert runs["plain"].dp is None and (runs["dp"].dp.rank, runs["dp"].dp.world) == (0, 1)
+    assert runs["dp"].dp.bytes_all_reduced > 0
+    plain, dp = (_trainer_state(runs[k]) for k in ("plain", "dp"))
+    assert len(plain) == len(dp) > 10 and all(torch.equal(a, b) for a, b in zip(plain, dp))
+    pickles = sorted(p.name for p in (tmp_path / "plain").glob("logits_*.pkl"))
+    assert pickles == (["logits_netD_eval.pkl"] if cli is train_mimicry_phase1 else [])
+    for name in pickles:
+        assert (tmp_path / "plain" / name).read_bytes() == (tmp_path / "dp" / name).read_bytes()
 
 
 def test_cli_flags_match_the_root_scripts():
