@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--kernels-only] [--against ROOT]
 
 Phases, in order; any failure raises and the script exits non-zero:
-  1. card name and power limit (nvidia-smi); TF32 off for convs and matmuls;
+  1. card name and power limit (nvidia-smi); IEEE fp32 for convs and matmuls
+     (TF32 off, diagan_tpu_torch.device.pin_fp32_precision, as every CLI);
   2. build the CUDA kernels from csrc/ (nvcc, sm_90a, one process per source,
      all started together) and compile the Triton ones;
   3. kernel A (upfirdn2d) against its plain-torch version on the card, on
@@ -50,7 +51,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      call for the same function, and the bytes/ops bound; G images/s, DRS
      accepted samples/s, and a torch.profiler breakdown of one DRS proposal
      batch (device time by kernel, idle share);
-  6. the training path at full width on 512 synthetic images: cli.train_ffhq
+  6. the training path at full width on 512 synthetic images (128 and rolled
+     copies): cli.train_ffhq
      for 8 steps with ADA at a fixed p = 0.3, R1 and path regularisation and
      logit sweeps; cli.train_ffhq_phase2 for 4 steps from that checkpoint with
      the LDR scores and the twin DRS discriminator; cli.generate and DRS on
@@ -67,7 +69,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      step polyphase / interleaved at the static pad / interleaved with the
      trainer's pad buckets, and a profile of one polyphase ADA-live step;
   8. the SNGAN-32 Dia-GAN path at full width (ngf 256, ndf 128), batch 64,
-     n_dis 5, on 50,000 synthetic images written in CIFAR-10's format:
+     n_dis 5, on 50,000 synthetic images written in CIFAR-10's format (10,000
+     procedural ones and rolled copies):
      cli.train_mimicry_phase1 for 30 steps with logit sweeps at 10, 20 and 30,
      cli.train_mimicry_phase2 for 10 steps with ldr_conf_1.0_ratio_50 and the
      twin DRS D, load_eval_models and DRS at batch 256 from the phase-2
@@ -77,10 +80,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   8b. one fused SNGAN phase-2 step, card against CPU, injected draws;
   9. evaluation (random Inception weights, from a seed): 9a the FID
      InceptionV3 card against CPU on 4 images; 9b cli.eval_gan_drs with its
-     counts cut to EVAL_N (FID 10k/10k, IS 10k, PR 10k/10k, DRS at batch
-     256; the CLI's FID and IS counts are 50k) on the SNGAN phase-2 run, KID
-     10k/10k, and cli.eval_gan_with_index against the phase-1 logits (10k
-     fakes), every score finite and no port kernel launched, with
+     counts cut to EVAL_N (FID 5k/5k, IS 5k, precision/recall 5k/5k, DRS at
+     batch 256; the CLI's FID and IS counts are 50k, precision/recall's
+     10k) on the SNGAN phase-2
+     run, KID 5k/5k, and cli.eval_gan_with_index against the phase-1 logits
+     (5k fakes), every score finite and no port kernel launched, with
      the wall seconds of real features, fake generation, featurisation and
      sqrtm; 9c FID with DRS of the StyleGAN2-256 phase-2 checkpoint (the
      eps-jitter sqrtm), whose kernel A and fused-act launches join the
@@ -117,7 +121,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      phase-2 run) on both colour runs and the FMNIST run,
      cli.eval_ae_score --use_loss, cli.train_mimicry_inclusive for 4 steps
      at full DCGAN and Inception width (its construction registers the
-     10,000 real features and refreshes the nearest latents: 20,000
+     10,000 real features and refreshes the nearest latents: 10,000
      latents at 299 px, of the script's 100,000) and
      cli.train_cae_inclusive; no port kernel may
      launch; images/s, CAE images/s, RE sweep ms, s per refresh, ms per
@@ -171,7 +175,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      world 1 over NCCL, in process, through the CLIs, against the plain run,
      with cuDNN's deterministic algorithms: cli.train_mimicry_phase1
      SNGAN-32 at full width on phase 8's 50k files for 10 steps with a sweep
-     at 10 and cli.train_ffhq at 256 px, full width, 4 steps without ADA,
+     at 10 and cli.train_ffhq at 64 px (a depth cut: cuDNN's deterministic
+     algorithms are slow in fp32), full width, 4 steps without ADA,
      each equal bit for bit (weights, buffers, Adam state, logit rows);
      cli.train_ffhq with ADA at a fixed p = 0.3 (every training kernel
      launching; the adjoint's atomics make no two runs equal), step 0 up to
@@ -188,6 +193,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      steps, adaptive ADA (the states and p equal on both ranks, each sign sum
      the sum of the ranks'); each rank's ms per step and the bytes
      all-reduced per step.
+ 17. the 25-Gaussians two-phase protocol through cli.smoke_toy at the JAX
+     script's settings (scripts/smoke_toy.py: 8000 phase-1 steps with eval
+     sweeps of the 10,000 points every 100 over 4000-8000, ldrv weights,
+     4000 phase-2 steps with the twin D, DRS; batch 256, the toy MLPs of
+     256, seed 1): each step's files, finite weights, well-formed coverage,
+     DRS accepting, no port kernel; the wall time of each step, steps/s,
+     the acceptance and the three coverage lines beside the JAX package's
+     hardware run; entered with TF32 on, after it a conv and a matmul
+     against float64 within 1e-5 (the CLIs' pinned fp32).
 Each phase prints its start, in seconds since the script started.
 The last lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a card it exits 2 and prints no result.
@@ -936,6 +950,17 @@ def check_polyphase_resample(dev, rng):
           f"(tol 2e-5 + 2e-4 x |want|)")
 
 
+def rolled_copies(n, size, n_base, seed):
+    """n procedural images (data/synthetic.py): n_base of them, then copies
+    rolled by one more pixel each along the width, as write_celeba makes
+    CelebA's 202,599 of 2,048 (the procedural images cost ~0.5 ms each at
+    32 px and ~19 ms at 256 px on the card's host)."""
+    from diagan_tpu_torch.data.synthetic import synthetic_natural
+
+    base = synthetic_natural(n_base, size, seed=seed)[0]
+    return np.concatenate([np.roll(base, t, axis=2) for t in range(-(-n // n_base))])[:n]
+
+
 def train_path(dev, smi, work):
     """The training path at full width through its CLIs: phase 1 (ADA at a
     fixed p, R1, path regularisation, logit sweeps), phase 2 from that
@@ -947,7 +972,6 @@ def train_path(dev, smi, work):
     import pickle
 
     from diagan_tpu_torch.cli import generate, train_ffhq, train_ffhq_phase2
-    from diagan_tpu_torch.data.synthetic import synthetic_natural
     from diagan_tpu_torch.eval.drs import DRS
     from diagan_tpu_torch.eval.evaluate import make_disc_fn, make_gen_fn, read_stylegan2_ckpt
     from diagan_tpu_torch.models.stylegan2 import StyleGAN2Discriminator, StyleGAN2Generator
@@ -956,8 +980,9 @@ def train_path(dev, smi, work):
     data = work / "data"
     data.mkdir(parents=True)
     t0 = time.perf_counter()
-    np.save(data / f"ffhq_{SIZE}.npy", synthetic_natural(N_DATA, SIZE, seed=7)[0])
-    print(f"dataset: {N_DATA} synthetic {SIZE} px images in {time.perf_counter() - t0:.2f} s")
+    np.save(data / f"ffhq_{SIZE}.npy", rolled_copies(N_DATA, SIZE, N_DATA // 4, seed=7))
+    print(f"dataset: {N_DATA} synthetic {SIZE} px images ({N_DATA // 4} and rolled copies) in "
+          f"{time.perf_counter() - t0:.2f} s")
     common = ["-d", "ffhq", "-r", str(data), "--size", str(SIZE), "--batch", "16",
               "--augment", "--augment_p", "0.3", "--work_dir", str(work),
               "--seed", str(SEED), "--device", dev.type]
@@ -1753,7 +1778,6 @@ def sngan_path(dev, smi, work):
     import pickle
 
     from diagan_tpu_torch.cli import train_mimicry_phase1, train_mimicry_phase2
-    from diagan_tpu_torch.data.synthetic import synthetic_natural
     from diagan_tpu_torch.eval.drs import DRS
     from diagan_tpu_torch.eval.evaluate import load_eval_models, make_disc_fn, make_gen_fn
     from diagan_tpu_torch.models.registry import get_gan_model
@@ -1761,9 +1785,9 @@ def sngan_path(dev, smi, work):
     from diagan_tpu_torch.train.steps import step_draws
 
     t0 = time.perf_counter()
-    data = write_cifar10(work / "cifar10", synthetic_natural(SNGAN_N, 32, seed=11)[0])
-    print(f"dataset: {SNGAN_N} synthetic 32 px images in CIFAR-10's format in "
-          f"{time.perf_counter() - t0:.2f} s")
+    data = write_cifar10(work / "cifar10", rolled_copies(SNGAN_N, 32, SNGAN_N // 5, seed=11))
+    print(f"dataset: {SNGAN_N} synthetic 32 px images ({SNGAN_N // 5} and rolled copies) in "
+          f"CIFAR-10's format in {time.perf_counter() - t0:.2f} s")
     common = ["-r", str(data), "--work_dir", str(work), "--device", dev.type,
               "--batch_size", str(SNGAN_BS), "--n_dis", str(SNGAN_NDIS), "--seed", str(SEED)]
 
@@ -1924,15 +1948,16 @@ def sngan_step_card_vs_cpu(dev, smi, size=32):
 
 EVAL_STEP, EVAL_P1_STEP, EVAL_SCORE = 40, 30, "ldr_conf_1.0_ratio_50"  # phase 8's runs
 # phase 9b's sample counts: the eval CLIs' are at most EVAL_N (a depth cut of
-# the CLIs' FID and IS counts of 50,000, to keep the script inside its limit)
-EVAL_N = 10000
+# the CLIs' FID and IS counts of 50,000 and PR's 10,000, to keep the script
+# inside its limit)
+EVAL_N = 5000
 # the JSONs of phase 9b: cli.eval_gan_drs's counts (FID, IS, PR), KID at
-# 10k/10k, and cli.eval_gan_with_index's FID of the 100 highest- and
+# EVAL_N, and cli.eval_gan_with_index's FID of the 100 highest- and
 # lowest-scored reals against EVAL_N fakes
-EVAL_JSON = (f"fid_{EVAL_N // 1000}k_{EVAL_N // 1000}k.json",
-             f"inception_score_{EVAL_N // 1000}k.json", "pr_10k_10k.json", "kid_10k_10k.json",
-             f"fid_high_{EVAL_SCORE}_0k_{EVAL_N // 1000}k.json",
-             f"fid_low_{EVAL_SCORE}_0k_{EVAL_N // 1000}k.json")
+_K = f"{EVAL_N // 1000}k"
+EVAL_JSON = (f"fid_{_K}_{_K}.json", f"inception_score_{_K}.json", f"pr_{_K}_{_K}.json",
+             f"kid_{_K}_{_K}.json", f"fid_high_{EVAL_SCORE}_0k_{_K}.json",
+             f"fid_low_{EVAL_SCORE}_0k_{_K}.json")
 
 
 def capped_counts(evaluate):
@@ -2029,9 +2054,9 @@ class PartTimer:
 
 def eval_path(dev, smi, work):
     """9b and 9c. 9b: SNGAN-32 evaluation on phase 8's runs, the CLIs'
-    counts cut to EVAL_N: cli.eval_gan_drs on the phase-2 run (step 40; FID
-    10k/10k, IS 10k, PR 10k/10k, DRS at batch 256) and its 50k synthetic
-    CIFAR-format set, KID at 10k/10k reusing PR's cached 10k DRS fakes, and
+    counts cut to EVAL_N: cli.eval_gan_drs on the phase-2 run (step 40; FID,
+    IS and PR at EVAL_N, DRS at batch 256) and its 50k synthetic
+    CIFAR-format set, KID at EVAL_N reusing the cached DRS fakes, and
     cli.eval_gan_with_index against the phase-1 logits (--p1_step 30); no
     port kernel may launch.
     9c: evaluate_checkpoint("fid") of phase 6's StyleGAN2-256 phase-2
@@ -2065,12 +2090,12 @@ def eval_path(dev, smi, work):
         return out
 
     n = f"{EVAL_N // 1000}k"
-    run(f"cli.eval_gan_drs (FID {n}/{n}, IS {n}, PR 10k/10k, DRS batch 256)",
+    run(f"cli.eval_gan_drs (FID {n}/{n}, IS {n}, PR {n}/{n}, DRS batch 256)",
         lambda: eval_gan_drs.main(common))
     real = get_predefined_dataset("cifar10", str(data)).images
-    run("evaluate_checkpoint kid 10k/10k (DRS, PR's cached fakes)", lambda: evaluate_checkpoint(
+    run(f"evaluate_checkpoint kid {n}/{n} (DRS, the cached fakes)", lambda: evaluate_checkpoint(
         "kid", get_gan_model("cifar10", drs=True, device=dev), sngan / "p2", EVAL_STEP,
-        real_images=real, num_real_samples=10000, num_fake_samples=10000, use_drs=True,
+        real_images=real, num_real_samples=EVAL_N, num_fake_samples=EVAL_N, use_drs=True,
         featurizer=InceptionFeaturizer(batch_size=128, device=dev), device=dev))
     run(f"cli.eval_gan_with_index (FID of 100 high / 100 low reals against {n} fakes)",
         lambda: eval_gan_with_index.main(common + [
@@ -2195,11 +2220,13 @@ def attr_classifier_card_vs_cpu(dev, smi):
     gradients (softmax CE, one fixed dropout mask) card against CPU in
     float64 within 1e-6 x max(1, max|g|), and each device's fp32 gradients
     against the float64 CPU ones within 1e-2 x max(1, max|g|), printed with
-    the tensor furthest off. 1e-3 does not hold in fp32: through the
-    train-mode BatchNorms the card's fp32 gradients came 2.27e-3 off at
-    conv5.weight with cuDNN and 2.4e-4 (as the CPU's) with cuDNN off,
-    whatever the TF32 and determinism settings (NVIDIA H100 80GB HBM3,
-    700 W)."""
+    the tensor furthest off, with the ReLUs and max pools free and with
+    every ReLU side and pool pick the float64 CPU run's (ActSides), then on
+    the card with the shared decisions and cuDNN off, or train-mode
+    BatchNorm in plain tensor ops. 1e-3 does not hold in fp32 with the
+    sides free: the card's fp32 gradients came 2.27e-3 off at conv5.weight
+    with cuDNN and 2.4e-4 (as the CPU's) with cuDNN off, whatever the TF32
+    and determinism settings (NVIDIA H100 80GB HBM3, 700 W)."""
     import copy
 
     import torch.nn.functional as F
@@ -2231,17 +2258,45 @@ def attr_classifier_card_vs_cpu(dev, smi):
     fwd_err = max(max_err(g, w) / max(1.0, w.abs().max().item())
                   for w, g in zip(forward(torch.device("cpu")), forward(dev)))
     check(fwd_err <= 1e-3, f"AttrClassifier forward err {fwd_err} > 1e-3 x max(1, max|out|)")
-    ref = gradients(torch.device("cpu"), torch.float64)
+    sides = ActSides()
+    with sides.record():
+        ref = gradients(torch.device("cpu"), torch.float64)
     err64, at64 = worst(gradients(dev, torch.float64), ref)
     check(err64 <= 1e-6, f"AttrClassifier float64 gradients err {err64} at {at64} > 1e-6")
-    (err_card, at_card), (err_cpu, at_cpu) = (worst(gradients(d, torch.float32), ref)
-                                              for d in (dev, torch.device("cpu")))
-    check(max(err_card, err_cpu) <= 1e-2, f"AttrClassifier fp32 gradients err: card {err_card} "
-          f"at {at_card}, CPU {err_cpu} at {at_cpu}; tol 1e-2")
+    def plain_batch_norm(x, mean, var, weight, bias, training, momentum, eps):
+        """Train-mode batch norm in plain tensor ops (not cuDNN's kernel)."""
+        if not training:
+            return batch_norm(x, mean, var, weight, bias, training, momentum, eps)
+        dims, shape = (0, *range(2, x.ndim)), (1, -1) + (1,) * (x.ndim - 2)
+        var, mean = torch.var_mean(x, dim=dims, unbiased=False, keepdim=True)
+        return (x - mean) * torch.rsqrt(var + eps) * weight.view(shape) + bias.view(shape)
+
+    batch_norm = F.batch_norm
+    free, shared = {}, {}
+    for name, d in (("card", dev), ("CPU", torch.device("cpu"))):
+        free[name] = worst(gradients(d, torch.float32), ref)
+        with sides.apply():
+            shared[name] = worst(gradients(d, torch.float32), ref)
+        check(sides.in_step(), "activation sides out of step")
+    # which of the card's kernels the shared-sides error comes from
+    probes = {}
+    with sides.apply(), torch.backends.cudnn.flags(enabled=False):
+        probes["cuDNN off"] = worst(gradients(dev, torch.float32), ref)
+    with sides.apply(), mock.patch.object(F, "batch_norm", plain_batch_norm):
+        probes["plain train-mode BatchNorm, cuDNN convs"] = worst(gradients(dev, torch.float32),
+                                                                  ref)
+    check(max(e for errs in (free, shared) for e, _ in errs.values()) <= 1e-2,
+          f"AttrClassifier fp32 gradients err: free {free}, the float64 run's ReLU sides and "
+          f"pool picks {shared}; tol 1e-2")
+
+    def fmt(errs):
+        return ", ".join(f"{k} {e:.3e} at {at}" for k, (e, at) in errs.items())
     print(f"card vs CPU, AttrClassifier at 64 px, batch 16: eval forward fp32 (TF32 off) max abs "
           f"err / max(1, max|out|) {fwd_err:.3e} (tol 1e-3); one train step's gradients in "
-          f"float64 {err64:.3e} at {at64} (tol 1e-6); in fp32 against the float64 CPU ones: "
-          f"card {err_card:.3e} at {at_card}, CPU {err_cpu:.3e} at {at_cpu} (tol 1e-2) [{smi}]")
+          f"float64 {err64:.3e} at {at64} (tol 1e-6); in fp32 against the float64 CPU ones, "
+          f"every ReLU side and max-pool pick the float64 run's: {fmt(shared)}; free: "
+          f"{fmt(free)} (tol 1e-2); the card with the shared decisions and {fmt(probes)} "
+          f"[{smi}]")
 
 
 def timed(owner, attr, log):
@@ -2575,37 +2630,55 @@ def mnist_path(dev, smi, work):
 
 
 class ActSides:
-    """The sides (x > 0) of every ReLU and LeakyReLU of one run, in call
-    order (`record`), applied in place of the activations' own decisions in
-    another run (`apply`): torch.nn.functional's relu and leaky_relu patched."""
+    """The sides (x > 0) of every ReLU and LeakyReLU of one run, and the
+    element each 2-D max pool picks, in call order (`record`), applied in
+    place of the activations' and pools' own decisions in another run
+    (`apply`): torch.nn.functional's relu, leaky_relu and max_pool2d
+    patched."""
 
     def __init__(self):
         self.sides, self.used = [], 0
+        self.picks, self.picked = [], 0
 
     def record(self):
         F = torch.nn.functional
-        relu, leaky = F.relu, F.leaky_relu
+        relu, leaky, pool = F.relu, F.leaky_relu, F.max_pool2d
 
         def keep(orig):
             def act(x, *a, **k):
                 self.sides.append((x > 0).cpu())
                 return orig(x, *a, **k)
             return act
-        return mock.patch.multiple(F, relu=keep(relu), leaky_relu=keep(leaky))
+
+        def keep_pick(x, *a, **k):
+            out, idx = pool(x, *a, **k, return_indices=True)
+            self.picks.append(idx.cpu())
+            return out
+        return mock.patch.multiple(F, relu=keep(relu), leaky_relu=keep(leaky),
+                                   max_pool2d=keep_pick)
 
     def _next(self, x):
         self.used += 1
         return self.sides[self.used - 1].to(x.device)
 
     def apply(self):
-        self.used = 0
+        self.used = self.picked = 0
 
         def relu(x, *a, **k):
             return torch.where(self._next(x), x, torch.zeros((), dtype=x.dtype, device=x.device))
 
         def leaky(x, negative_slope=0.01, inplace=False):
             return torch.where(self._next(x), x, negative_slope * x)
-        return mock.patch.multiple(torch.nn.functional, relu=relu, leaky_relu=leaky)
+
+        def pool(x, *a, **k):
+            self.picked += 1
+            idx = self.picks[self.picked - 1].to(x.device)
+            return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        return mock.patch.multiple(torch.nn.functional, relu=relu, leaky_relu=leaky,
+                                   max_pool2d=pool)
+
+    def in_step(self):
+        return self.used == len(self.sides) and self.picked == len(self.picks)
 
 
 def dcgan_step_card_vs_cpu(dev, smi):
@@ -2714,7 +2787,7 @@ def dcgan_step_card_vs_cpu(dev, smi):
     for name, d in (("card", dev), ("CPU", cpu)):
         with sides.apply():
             shared[name] = worst(run(d, torch.float32)[1], ref)
-        check(sides.used == len(sides.sides), "activation sides out of step")
+        check(sides.in_step(), "activation sides out of step")
     check(max(e for e, _ in shared.values()) <= 1e-2,
           f"DCGAN fp32 gradients err with the float64 run's activation sides {shared}; tol 1e-2")
 
@@ -2730,7 +2803,7 @@ def dcgan_step_card_vs_cpu(dev, smi):
 
 # depth cuts: the scripts' 50 CAE epochs, 20,000 Inclusive steps and 10 latents
 # per real image in a refresh
-CAE_EPOCHS, INCL_STEPS, INCL_LATENT_FACTOR = 2, 4, 2
+CAE_EPOCHS, INCL_STEPS, INCL_LATENT_FACTOR = 2, 4, 1
 CAE_GEN = 50000  # the CAE scripts' generated images (generate_dataset's count)
 
 
@@ -2750,7 +2823,7 @@ def cae_inclusive_path(dev, smi, work):
     cli.train_cae_inclusive on its checkpoint. Cuts (depth only): CAE_EPOCHS
     CAE epochs of the scripts' 50, INCL_STEPS Inclusive steps of 20,000 (the
     refresh every 3120 steps is not reached after construction), a refresh
-    of 20,000 latents where the script draws 100,000. No port kernel may launch. Readings:
+    of 10,000 latents where the script draws 100,000. No port kernel may launch. Readings:
     generated images/s, CAE train images/s, ms per RE sweep of 10,000,
     Inclusive ms per step beside the plain DCGAN step's, s per refresh, s to
     register the real features, the eval_ae_score rows, peak memory, the
@@ -2974,6 +3047,7 @@ def cae_inclusive_card_vs_cpu(dev, smi):
 
 
 SS_P1, SS_P2, SS_FLAG_STEPS, SS_MNIST_STEPS, SS_CELEBA_STEPS = 20, 28, 10, 100, 4  # depth cuts
+SS_RATE_STEPS = 5  # synchronised steps a 32 px steps/s reading takes (a depth cut)
 
 
 def sngan_twin_step(tr, dataset, dev, **fusions):
@@ -3073,8 +3147,8 @@ def ssgan_infomax_path(dev, smi, work):
         acc = drs.accepted / drs.proposed
         check(accepted.shape == (4096, 32, 32, 3) and np.isfinite(accepted).all()
               and 0.0 < acc < 1.0, f"{model} DRS output, acceptance {acc}")
-        sps[f"{model} phase 1"] = steps_per_s(tr1, SS_P2 + 1, dev)
-        sps[f"{model} phase 2"] = steps_per_s(tr2, SS_P2 + 1, dev)
+        sps[f"{model} phase 1"] = steps_per_s(tr1, SS_P2 + 1, dev, SS_RATE_STEPS)
+        sps[f"{model} phase 2"] = steps_per_s(tr2, SS_P2 + 1, dev, SS_RATE_STEPS)
         sweep = []
         for _ in range(2):
             torch.cuda.synchronize()
@@ -3091,7 +3165,7 @@ def ssgan_infomax_path(dev, smi, work):
     tr_ss = trainers["ssgan"]
     for name, fusions in (("sngan", {}), ("sngan concat_d", {"concat_d": True}),
                           ("sngan fuse_g", {"fuse_g": True})):
-        sps[name] = steps_per_s(None, SS_P2 + 1, dev,
+        sps[name] = steps_per_s(None, SS_P2 + 1, dev, SS_RATE_STEPS,
                                 fused=sngan_twin_step(tr_ss, "cifar10", dev, **fusions))
     for flag in ("--simultaneous_g", "--bf16"):
         tr = drive(f"sngan {flag}", lambda: train_mimicry_phase1.main(cifar_args + [
@@ -3104,10 +3178,10 @@ def ssgan_infomax_path(dev, smi, work):
               f"{walls[f'sngan {flag}']:.2f} s, metrics "
               f"{finite_metrics(tr, ('errD', 'errG', 'D(x)', 'D(G(z))'))}; no port kernel "
               f"launched")
-        sps[f"sngan {flag}"] = steps_per_s(tr, SS_FLAG_STEPS, dev)
+        sps[f"sngan {flag}"] = steps_per_s(tr, SS_FLAG_STEPS, dev, SS_RATE_STEPS)
         del tr
-    print("SNGAN-family steps/s at 32 px, batch 64, n_dis 5 (host clock, 10 synchronised "
-          f"steps, fp32 unless bf16): {({k: round(v, 3) for k, v in sps.items()})} [{smi}]")
+    print(f"SNGAN-family steps/s at 32 px, batch 64, n_dis 5 (host clock, {SS_RATE_STEPS} "
+          f"synchronised steps, fp32 unless bf16): {({k: round(v, 3) for k, v in sps.items()})} [{smi}]")
 
     tr = drive("colour phase 1 --bf16", lambda: train_mimicry_color_mnist_phase1.main([
         "--work_dir", str(out), "--device", dev.type, "--seed", str(SEED), "-r", str(colour),
@@ -4131,6 +4205,9 @@ def index_loader_path(dev, smi, work, fid):
 # 16. data parallelism --------------------------------------------------------------
 DP_WORLD = 2  # 16b: two ranks sharing the one card over gloo
 DP_SNGAN_STEPS, DP_FFHQ_STEPS = 10, 4
+# 16a's StyleGAN2 runs at 64 px (full width), a depth cut: in fp32 cuDNN's
+# deterministic algorithms take 1883 ms a 256 px step
+DP_FFHQ_SIZE = 64
 
 
 def run_state(tr):
@@ -4198,11 +4275,12 @@ def timed_fused_steps(log):
 
 def dp_world1_path(dev, smi, work):
     """16a. --data_parallel at world 1 over NCCL, in process, through the
-    CLIs, against the plain run, with cuDNN's deterministic algorithms (TF32
-    convs). Bit for bit (weights, buffers, Adam state, pl_mean, logit rows):
+    CLIs, against the plain run, with cuDNN's deterministic algorithms
+    (fp32). Bit for bit (weights, buffers, Adam state, pl_mean, logit rows):
     SNGAN-32 phase 1 at full width on phase 8's 50k files (DP_SNGAN_STEPS
-    steps, a sweep at the last) and cli.train_ffhq at SIZE px, full width,
-    batch 16, without ADA (DP_FFHQ_STEPS steps, a sweep at step 2). With ADA
+    steps, a sweep at the last) and cli.train_ffhq at DP_FFHQ_SIZE px, full
+    width, batch 16, on phase 6's kind of procedural images, without ADA
+    (DP_FFHQ_STEPS steps, a sweep at step 2). With ADA
     at a fixed p = 0.3, whose adjoint's atomics make no two runs equal:
     step 0 up to G's first update bit for bit, the state beside a second
     plain run's spread. ms per step with and without the flag. Then
@@ -4214,29 +4292,31 @@ def dp_world1_path(dev, smi, work):
     import torch.distributed as dist
 
     from diagan_tpu_torch.cli import train_ffhq, train_mimicry_phase1
+    from diagan_tpu_torch.data.synthetic import synthetic_natural
     from diagan_tpu_torch.models.ada import AdaptiveAugment
     from diagan_tpu_torch.ops import _build
     from diagan_tpu_torch.train.stylegan2_trainer import StyleGAN2Trainer
 
-    cifar, ffhq = work / "sngan" / "cifar10", work / "train" / "data"
-    check(cifar.is_dir() and (ffhq / f"ffhq_{SIZE}.npy").is_file(),
-          "phase 8's or phase 6's dataset is missing")
+    cifar = work / "sngan" / "cifar10"
+    check(cifar.is_dir(), "phase 8's dataset is missing")
     out = work / "dp"
     sngan = ["-r", str(cifar), "--work_dir", str(out), "--device", dev.type, "--batch_size",
              str(SNGAN_BS), "--n_dis", str(SNGAN_NDIS), "--seed", str(SEED),
              "--no_schedule_override", "--num_steps", str(DP_SNGAN_STEPS),
              "--logit_save_steps", str(DP_SNGAN_STEPS), "--save_logit_after",
              str(DP_SNGAN_STEPS), "--stop_save_logit_after", str(DP_SNGAN_STEPS)]
-    ffhq_args = ["-d", "ffhq", "-r", str(ffhq), "--size", str(SIZE), "--batch", "16",
+    ffhq = out / "data"
+    ffhq.mkdir(parents=True)
+    np.save(ffhq / f"ffhq_{DP_FFHQ_SIZE}.npy", synthetic_natural(N_DATA, DP_FFHQ_SIZE, seed=7)[0])
+    ffhq_args = ["-d", "ffhq", "-r", str(ffhq), "--size", str(DP_FFHQ_SIZE), "--batch", "16",
                  "--work_dir", str(out), "--seed", str(SEED), "--device", dev.type]
     runs, ms = {}, {}
     # cuDNN's deterministic algorithms (its default algorithms add with
-    # atomics, forwards included), with TF32 convs (PyTorch's default): TF32
-    # changes neither side of an equality, and fp32's deterministic
-    # algorithms are slow (a plain StyleGAN2-256 step 1887.83 ms against
-    # 183.38 with TF32, an H100 80GB HBM3 at 700 W)
+    # atomics, forwards included), in IEEE fp32 as every CLI pins it: fp32's
+    # deterministic algorithms are slow (a plain StyleGAN2-256 step 1887.83
+    # ms against 183.38 with TF32 convs, an H100 80GB HBM3 at 700 W)
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
-                                    allow_tf32=True):
+                                    allow_tf32=False):
         for flag in ("", "--data_parallel"):
             steps = []
             with timed_fused_steps(steps):
@@ -4259,7 +4339,7 @@ def dp_world1_path(dev, smi, work):
               f"{DP_SNGAN_STEPS} steps, a sweep of {SNGAN_N} at step {DP_SNGAN_STEPS}): "
               f"--data_parallel (world 1, NCCL) equals the plain run bit for bit in "
               f"{len(runs['sngan'][0])} tensors and the logit pickle; ms per step (steps 2-"
-              f"{DP_SNGAN_STEPS}, synchronised, host clock; cuDNN deterministic, TF32 convs) "
+              f"{DP_SNGAN_STEPS}, synchronised, host clock; cuDNN deterministic, fp32) "
               f"plain {ms['sngan']:.2f}, "
               f"--data_parallel {ms['sngan--data_parallel']:.2f}; "
               f"{sngan_bytes / DP_SNGAN_STEPS / 1e6:.3f} MB all-reduced per step (the sweep's "
@@ -4300,12 +4380,12 @@ def dp_world1_path(dev, smi, work):
         plain = ffhq_run("ffhq", [])
         dp_run = ffhq_run("ffhq_dp", ["--data_parallel"])
         differ, worst = state_diff(plain[0], dp_run[0])
-        check(not differ, f"StyleGAN2-{SIZE} --data_parallel differs from the plain run in "
-                          f"{len(differ)} tensors (max abs {worst:.3e}), e.g. {differ[:4]}")
-        print(f"16a cli.train_ffhq {SIZE} px (full width, batch 16, no ADA, {DP_FFHQ_STEPS} "
-              f"steps, a sweep of {N_DATA} at step 2): --data_parallel (world 1, NCCL) equals "
-              f"the plain run bit for bit in {len(plain[0])} tensors; ms per step (steps 2-"
-              f"{DP_FFHQ_STEPS}, synchronised, host clock; cuDNN deterministic, TF32 convs) "
+        check(not differ, f"StyleGAN2-{DP_FFHQ_SIZE} --data_parallel differs from the plain "
+                          f"run in {len(differ)} tensors (max abs {worst:.3e}), e.g. {differ[:4]}")
+        print(f"16a cli.train_ffhq {DP_FFHQ_SIZE} px (full width, batch 16, no ADA, "
+              f"{DP_FFHQ_STEPS} steps, a sweep of {N_DATA} at step 2): --data_parallel (world 1, "
+              f"NCCL) equals the plain run bit for bit in {len(plain[0])} tensors; ms per step "
+              f"(steps 2-{DP_FFHQ_STEPS}, synchronised, host clock; cuDNN deterministic, fp32) "
               f"plain {per_step_ms(plain[2]):.2f}, --data_parallel {per_step_ms(dp_run[2]):.2f} "
               f"[{smi}]")
         # ADA at p = 0.3: the adjoint's clamped pass adds with atomics in a
@@ -4328,13 +4408,14 @@ def dp_world1_path(dev, smi, work):
                                        f"that repeats itself bit for bit, in {len(differ)} tensors")
         ffhq_ms = per_step_ms(plain[2]), per_step_ms(dp_run[2])
         dp = dp_run[1]
-        print(f"16a cli.train_ffhq {SIZE} px (full width, batch 16, ADA p=0.3, {DP_FFHQ_STEPS} "
+        print(f"16a cli.train_ffhq {DP_FFHQ_SIZE} px (full width, batch 16, ADA p=0.3, "
+              f"{DP_FFHQ_STEPS} "
               f"steps, a sweep of {N_DATA} at step 2), --data_parallel (world 1, NCCL): step "
               f"0's {', '.join(first)} equal to the plain run's bit for bit; {len(differ)} of "
               f"{len(plain[0])} tensors differ from the plain run (max abs {worst:.3e}), as "
               f"{len(spread[0])} differ between two plain runs (max abs {spread[1]:.3e}); ms per "
               f"step (steps 2-{DP_FFHQ_STEPS}: no R1 or path step; synchronised, host clock; "
-              f"cuDNN deterministic, TF32 convs) plain {ffhq_ms[0]:.2f}, --data_parallel "
+              f"cuDNN deterministic, fp32) plain {ffhq_ms[0]:.2f}, --data_parallel "
               f"{ffhq_ms[1]:.2f} ({100 * (ffhq_ms[1] / ffhq_ms[0] - 1):+.2f}%), a second plain "
               f"run {per_step_ms(again[2]):.2f}; {dp.bytes_all_reduced / DP_FFHQ_STEPS / 1e6:.3f} "
               f"MB all-reduced per step [{smi}]")
@@ -4364,7 +4445,8 @@ def dp_world1_path(dev, smi, work):
     check(len(tunes) == steps and [p for *_, p in tunes] == want and tr.ada_aug_p == want[-1] > 0
           and tunes[15][2] > 0 == tunes[14][2] and replay.r_t_stat == tr.ada.r_t_stat,
           f"adaptive ADA's p {[p for *_, p in tunes]} against the replay {want}")
-    print(f"16a cli.train_ffhq --data_parallel, adaptive ADA ({steps} steps, batch 16, target -1, "
+    print(f"16a cli.train_ffhq {DP_FFHQ_SIZE} px --data_parallel, adaptive ADA ({steps} steps, "
+          f"batch 16, target -1, "
           f"length 2000): the all-reduced sign sums {[s for s, *_ in tunes]} over counts of "
           f"{tunes[0][1]}; r_t {tr.ada.r_t_stat:.4f}; p 0 -> {tr.ada_aug_p:.4f} at the update "
           f"after step 16, equal to the host replay; metrics "
@@ -4473,10 +4555,10 @@ def dp_worker(run_dir, rank):
     on the card and writes their results to DIR/rank{RANK}.pt."""
     import torch.distributed as dist
 
+    from diagan_tpu_torch.device import pin_fp32_precision
     from diagan_tpu_torch.parallel import init_data_parallel
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    pin_fp32_precision()
     run_dir = Path(run_dir)
     work = run_dir.parent
     dist.init_process_group("gloo", init_method=f"file://{run_dir / 'store'}", rank=rank,
@@ -4568,6 +4650,108 @@ def dp_world2_path(smi, work, timeout=400):
           f"took {wall:.2f} s in all, start-up included [{smi}]")
 
 
+# the toy protocol at the JAX script's settings (scripts/smoke_toy.py), and the
+# JAX package's own hardware run of it, seed 1 (docs/VALIDATION.md:201-215)
+TOY = {"num_steps": 8000, "num_data": 10000, "batch_size": 256, "seed": 1}
+TOY_JAX = {"phase1": (24, 0.379), "phase2": (20, 0.678), "phase2+DRS": (20, 0.799)}
+
+
+def fp32_errors(dev):
+    """A 3x3 conv (16 x 128 x 64 x 64) and a 1024^2 matmul on the card, each
+    against float64 of the same inputs: max abs err / max|float64 out|. IEEE
+    fp32 reads ~1e-7-1e-6, TF32 (10-bit mantissa products) ~1e-3."""
+    g = torch.Generator(dev).manual_seed(SEED + 17)
+    x = torch.randn((16, 128, 64, 64), generator=g, device=dev)
+    w = torch.randn((128, 128, 3, 3), generator=g, device=dev) / math.sqrt(128 * 9)
+    a, b = (torch.randn((1024, 1024), generator=g, device=dev) for _ in range(2))
+
+    def rel(got, want):
+        return ((got.double() - want).abs().max() / want.abs().max()).item()
+    conv = torch.nn.functional.conv2d
+    return (rel(conv(x, w, padding=1), conv(x.double(), w.double(), padding=1)),
+            rel(a @ b, a.double() @ b.double()))
+
+
+def toy_protocol_path(dev, smi, work):
+    """17. cli.smoke_toy, the 25-Gaussians two-phase protocol at the JAX
+    script's settings (8000 phase-1 steps with 41 eval sweeps of the 10,000
+    points over 4000-8000, ldrv weights, 4000 phase-2 steps with the twin D
+    from phase 1's files, DRS at batch 256; the toy MLPs at their width of
+    256, seed 1): each step's files, the weights finite with mean > 0, the
+    three coverage pairs well formed, DRS accepting; no port kernel may
+    launch. Quality is not gated: torch's draws are not the JAX package's,
+    so the coverage lines are printed beside its hardware run's. The CLI is
+    entered with TF32 switched on: after it returns, a conv and a matmul
+    must agree with float64 within 1e-5 (TF32 reads ~1e-3), both errors
+    printed beside the ones taken with TF32 on."""
+    from diagan_tpu_torch.cli import smoke_toy
+    from diagan_tpu_torch.eval.drs import DRS
+    from diagan_tpu_torch.ops import _build
+    from diagan_tpu_torch.train.logit_recorder import LogitRecorder
+    from diagan_tpu_torch.train.steps import step_draws
+    from diagan_tpu_torch.train.trainer import LogTrainer
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    tf32 = fp32_errors(dev)
+    n1 = TOY["num_steps"]
+    n2 = n1 + n1 // 2
+    trains, scores, warms, draws, sweeps = [], [], [], [], []
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with timed(LogTrainer, "train", trains), timed(smoke_toy, "load_phase1_scores", scores), \
+            timed(DRS, "init_drs", warms), timed(DRS, "generate_images", draws), \
+            timed(LogitRecorder, "sweep", sweeps):
+        run = smoke_toy.main(["--device", dev.type, "--work_dir", str(work)]
+                             + [f"--{k}={v}" for k, v in TOY.items()])
+    wall = time.perf_counter() - t0
+    pinned = fp32_errors(dev)
+    check(not (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32),
+          "cli.smoke_toy left TF32 on")
+    check(max(pinned) <= 1e-5, f"after a CLI main, conv / matmul against float64 {pinned}: "
+                               f"not IEEE fp32 (tol 1e-5)")
+    no_kernel_launched("cli.smoke_toy")
+
+    out = work / "toy25"
+    for path in [out / f"checkpoints/{n}/{n}_{n1}_steps.pth" for n in ("netG", "netD")] + \
+            [out / f"phase2/checkpoints/{n}/{n}_{n2}_steps.pth"
+             for n in ("netG", "netD", "netD_drs")]:
+        check(path.is_file(), f"no {path.relative_to(work)}")
+    check_logits(out / "logits_netD_eval.pkl", list(range(n1 // 2, n1 + 1, 100)),
+                 TOY["num_data"])
+    w = run["weights"]
+    check(w.shape == (TOY["num_data"],) and bool(np.isfinite(w).all()) and w.mean() > 0,
+          f"phase-2 weights: shape {w.shape}, mean {w.mean()}")
+    cov = run["coverage"]
+    check(list(cov) == list(TOY_JAX) and all(
+        type(m) is int and 0 <= m <= 25 and 0.0 <= f <= 1.0 for m, f in cov.values()),
+        f"coverage {cov}")
+    tr1, tr2 = run["trainers"]
+    drs = run["drs"]
+    check((tr1.global_step, tr2.global_step) == (n1, n2) and drs.accepted > 0,
+          f"steps {tr1.global_step}, {tr2.global_step}; DRS accepted {drs.accepted}")
+    finite_metrics(tr2, ("errD", "errG"))
+
+    (_, t1), (_, t2) = trains
+    t_sweeps = sum(t for _, t in sweeps)
+    t_scores, t_warm, t_draw = scores[0][1], warms[0][1], draws[0][1]
+    print(f"cli.smoke_toy (25-Gaussians, {TOY}), wall {wall:.2f} s: phase 1 {t1:.2f} s "
+          f"({n1} steps, {n1 / t1:.2f} steps/s; {len(sweeps)} sweeps of {TOY['num_data']} "
+          f"points {t_sweeps:.2f} s, without them {n1 / (t1 - t_sweeps):.2f} steps/s); ldrv "
+          f"weights {t_scores:.3f} s (mean {w.mean():.4f}, max {w.max():.4f}); phase 2 "
+          f"{t2:.2f} s ({n2 - n1} steps with the twin D, {(n2 - n1) / t2:.2f} steps/s); DRS "
+          f"warm-up 50 x 256 {t_warm:.3f} s, 5000 accepted of {drs.proposed} proposed "
+          f"(acceptance {drs.accepted / drs.proposed:.4f}) in {t_draw:.3f} s [{smi}]")
+    for name, (m, f) in cov.items():
+        jm, jf = TOY_JAX[name]
+        print(f"  {name}: {m}/25 modes, {f:.3f} high-quality (the JAX package's hardware run, "
+              f"seed 1: {jm}/25, {jf:.3f})")
+    print(f"precision after cli.smoke_toy returned: conv 16x128x64x64 3x3 rel err "
+          f"{pinned[0]:.3e}, matmul 1024^2 {pinned[1]:.3e} against float64 (tol 1e-5); with "
+          f"TF32 on before it: {tf32[0]:.3e}, {tf32[1]:.3e} [{smi}]")
+    profile(lambda: tr2.fused_step(n2, step_draws(TOY["seed"], n2, dev)),
+            "one toy phase-2 step (batch 256, twin D)", smi, ())
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -4587,6 +4771,7 @@ def main(argv=None):
     if args.dp_worker:
         return dp_worker(args.dp_worker[0], int(args.dp_worker[1]))
     from diagan_tpu_torch.cli import generate
+    from diagan_tpu_torch.device import pin_fp32_precision
     from diagan_tpu_torch.eval.drs import DRS
     from diagan_tpu_torch.eval.evaluate import (
         make_disc_fn,
@@ -4615,8 +4800,7 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    pin_fp32_precision()  # the CLIs' precision, for the whole script
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -4879,7 +5063,7 @@ def main(argv=None):
     held = torch.cuda.memory_allocated()  # what earlier phases still hold
     phase("9a. Inception, card against CPU")
     inception_card_vs_cpu(dev, smi)
-    phase("9b/9c. evaluation: SNGAN-32 at 10k counts, StyleGAN2-256 with DRS")
+    phase(f"9b/9c. evaluation: SNGAN-32 at {EVAL_N // 1000}k counts, StyleGAN2-256 with DRS")
     eval_launches, eval_fir = eval_path(dev, smi, work)
     for k in kernels:
         if k["name"] in eval_launches:
@@ -4966,6 +5150,10 @@ def main(argv=None):
             k["launches"] += dp_fir[name.split("/", 1)[1]]
     phase("16b. two ranks over gloo on the one card")
     dp_world2_path(smi, work)
+
+    # 17. the 25-Gaussians two-phase protocol, no port kernel; the CLIs' precision
+    phase("17. cli.smoke_toy: the 25-Gaussians protocol at full depth; fp32 after a CLI")
+    toy_protocol_path(dev, smi, work / "toy")
 
     shutil.rmtree(work, ignore_errors=True)
     phase("done")

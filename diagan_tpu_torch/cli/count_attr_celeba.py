@@ -22,7 +22,7 @@ from pathlib import Path
 
 import numpy as np
 
-from diagan_tpu_torch.device import resolve_device
+from diagan_tpu_torch.device import pin_fp32_precision, resolve_device
 from diagan_tpu_torch.eval.drs import DRS
 from diagan_tpu_torch.eval.evaluate import Sampler, load_eval_models, make_disc_fn, make_gen_fn
 from diagan_tpu_torch.models.convnets import AttrClassifier
@@ -63,6 +63,7 @@ def make_sampler(bundle, save_path, step, use_drs, use_original_netD, device):
 
 def main(argv=None):
     """Count; returns the JSON's dict."""
+    pin_fp32_precision()
     parser = build_parser()
     args = parser.parse_args(argv)
     device = resolve_device(args.device)

@@ -20,6 +20,7 @@ from pathlib import Path
 import numpy as np
 
 from diagan_tpu_torch.data.sources import CELEBA_ATTR_NAMES, load_celeba, load_celeba_attrs
+from diagan_tpu_torch.device import pin_fp32_precision
 from diagan_tpu_torch.score import calculate_scores
 
 
@@ -37,6 +38,7 @@ def build_parser():
 
 def main(argv=None):
     """Print the means; returns {"attr": mean, "not_attr": mean} of the weights."""
+    pin_fp32_precision()
     args = build_parser().parse_args(argv)
     save_path = Path(f"{args.work_dir}/{args.exp_name}")
     logit_path = save_path / "logits_netD_eval.pkl"

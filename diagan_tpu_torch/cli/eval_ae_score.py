@@ -29,7 +29,7 @@ from pathlib import Path
 import numpy as np
 
 from diagan_tpu_torch.data.predefined import get_predefined_dataset
-from diagan_tpu_torch.device import resolve_device
+from diagan_tpu_torch.device import pin_fp32_precision, resolve_device
 from diagan_tpu_torch.score import calculate_scores
 from diagan_tpu_torch.utils import set_seed
 
@@ -37,6 +37,7 @@ from diagan_tpu_torch.utils import set_seed
 def main(argv=None):
     """Returns the CSV rows written: [major_ratio, seed, type, baseline,
     resample, difference %]."""
+    pin_fp32_precision()
     parser = argparse.ArgumentParser()
     parser.add_argument("--dataset", "-d", default="color_mnist", type=str)
     parser.add_argument("--root", "-r", default="./dataset/colour_mnist", type=str)

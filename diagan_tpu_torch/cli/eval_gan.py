@@ -17,7 +17,7 @@ import argparse
 from pathlib import Path
 
 from diagan_tpu_torch.data.predefined import get_predefined_dataset
-from diagan_tpu_torch.device import resolve_device
+from diagan_tpu_torch.device import pin_fp32_precision, resolve_device
 from diagan_tpu_torch.eval.evaluate import evaluate_checkpoint
 from diagan_tpu_torch.eval.inception import InceptionFeaturizer
 from diagan_tpu_torch.models.registry import get_gan_model
@@ -74,6 +74,7 @@ def evaluate_fid_is_pr(args, bundle, device, use_drs=False, use_original_netD=Fa
 
 def main(argv=None):
     """Evaluate; returns the three metrics' result dicts."""
+    pin_fp32_precision()
     parser = add_eval_flags(argparse.ArgumentParser(), gpu_default="0")
     parser.add_argument("--device", default="cuda", type=str)
     args = parser.parse_args(argv)

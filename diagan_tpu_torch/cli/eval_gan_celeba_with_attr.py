@@ -28,7 +28,7 @@ import numpy as np
 from diagan_tpu_torch.cli.count_attr_celeba import make_sampler
 from diagan_tpu_torch.data.predefined import get_predefined_dataset
 from diagan_tpu_torch.data.sources import CELEBA_ATTR_NAMES
-from diagan_tpu_torch.device import resolve_device
+from diagan_tpu_torch.device import pin_fp32_precision, resolve_device
 from diagan_tpu_torch.eval import metrics as M
 from diagan_tpu_torch.eval.inception import InceptionFeaturizer
 from diagan_tpu_torch.models.registry import get_gan_model
@@ -150,6 +150,7 @@ def run(args, use_drs=False, use_original_netD=False, num_fake=None, num_real=No
 
 
 def main(argv=None):
+    pin_fp32_precision()
     return run(build_parser().parse_args(argv))
 
 

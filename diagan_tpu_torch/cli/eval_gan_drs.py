@@ -13,13 +13,14 @@ from __future__ import annotations
 import argparse
 
 from diagan_tpu_torch.cli.eval_gan import add_eval_flags, evaluate_fid_is_pr
-from diagan_tpu_torch.device import resolve_device
+from diagan_tpu_torch.device import pin_fp32_precision, resolve_device
 from diagan_tpu_torch.models.registry import get_gan_model
 from diagan_tpu_torch.utils import set_seed
 
 
 def main(argv=None):
     """Evaluate under DRS; returns the three metrics' result dicts."""
+    pin_fp32_precision()
     parser = add_eval_flags(argparse.ArgumentParser(), gpu_default=None)
     parser.add_argument("--use_original_netD", action="store_true")
     parser.add_argument("--device", default="cuda", type=str)

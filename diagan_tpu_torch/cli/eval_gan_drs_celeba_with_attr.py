@@ -10,9 +10,11 @@ JSONs carry a drs_ tag.
 from __future__ import annotations
 
 from diagan_tpu_torch.cli.eval_gan_celeba_with_attr import build_parser, run
+from diagan_tpu_torch.device import pin_fp32_precision
 
 
 def main(argv=None):
+    pin_fp32_precision()
     parser = build_parser()
     parser.add_argument("--use_original_netD", action="store_true")
     args = parser.parse_args(argv)

@@ -7,9 +7,11 @@ surface plus --use_original_netD).
 from __future__ import annotations
 
 from diagan_tpu_torch.cli.eval_gan_with_index import build_parser, run
+from diagan_tpu_torch.device import pin_fp32_precision
 
 
 def main(argv=None):
+    pin_fp32_precision()
     parser = build_parser()
     parser.add_argument("--use_original_netD", action="store_true")
     args = parser.parse_args(argv)

@@ -19,7 +19,7 @@ import numpy as np
 
 from diagan_tpu_torch.cli.common import load_phase1_scores
 from diagan_tpu_torch.data.predefined import get_predefined_dataset
-from diagan_tpu_torch.device import resolve_device
+from diagan_tpu_torch.device import pin_fp32_precision, resolve_device
 from diagan_tpu_torch.eval.evaluate import evaluate_checkpoint
 from diagan_tpu_torch.eval.inception import InceptionFeaturizer
 from diagan_tpu_torch.models.registry import get_gan_model
@@ -81,6 +81,7 @@ def run(args, use_drs=False, use_original_netD=False):
 
 
 def main(argv=None):
+    pin_fp32_precision()
     return run(build_parser().parse_args(argv))
 
 

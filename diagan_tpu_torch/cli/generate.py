@@ -16,7 +16,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from diagan_tpu_torch.device import resolve_device
+from diagan_tpu_torch.device import pin_fp32_precision, resolve_device
 from diagan_tpu_torch.eval.evaluate import read_stylegan2_ckpt
 from diagan_tpu_torch.models.stylegan2 import StyleGAN2Generator
 from diagan_tpu_torch.train.logger import save_image_grid
@@ -26,6 +26,7 @@ from diagan_tpu_torch.train.logger import save_image_grid
 def main(argv=None):
     """Write --pics grids of --sample images; returns the images as one
     (pics * sample, size, size, 3) float array in [-1, 1]."""
+    pin_fp32_precision()
     parser = argparse.ArgumentParser()
     parser.add_argument("--size", type=int, default=1024)
     parser.add_argument("--sample", type=int, default=1)

@@ -40,7 +40,7 @@ from diagan_tpu_torch.cli.common import (
     resolve_phase2_resume,
 )
 from diagan_tpu_torch.data.predefined import get_predefined_dataset
-from diagan_tpu_torch.device import resolve_device
+from diagan_tpu_torch.device import pin_fp32_precision, resolve_device
 from diagan_tpu_torch.models.registry import get_gan_model
 from diagan_tpu_torch.score import calculate_scores, warn_if_degenerate_weights
 from diagan_tpu_torch.train.logger import save_image_grid
@@ -129,6 +129,7 @@ def _phase1_ckpts(args, baseline_save_path):
 def phase1(dataset, root, exp, argv=None):
     """Phase 1: train G and D, recording D's train-mode logits every
     --logit_save_steps (not with PacGAN). Returns the trainer."""
+    pin_fp32_precision()
     fmnist = dataset == "mnist_fmnist"
     parser = _base_parser(dataset, root, exp, model="mnist_dcgan" if fmnist else "mnistgan",
                           quiet=fmnist)
@@ -170,6 +171,7 @@ def phase2(dataset, root, exp, argv=None):
     """Phase 2: LDR-score resampling from the phase-1 logits and the twin DRS
     discriminator (MNIST-FMNIST: --gold turns GOLD on from --p1_step).
     Returns the trainer."""
+    pin_fp32_precision()
     fmnist = dataset == "mnist_fmnist"
     # --use_clipping exists in the fmnist phase-2 script but not the
     # color_mnist one
@@ -247,6 +249,7 @@ def phase2(dataset, root, exp, argv=None):
 def phase2_gold(dataset, root, exp, argv=None):
     """The GOLD baseline's phase 2 from the phase-1 checkpoints, GOLD on from
     --p1_step, uniform data. Returns the trainer."""
+    pin_fp32_precision()
     fmnist = dataset == "mnist_fmnist"
     parser = _base_parser(dataset, root, exp, quiet=fmnist)
     parser.add_argument("--baseline_exp_name",
@@ -289,6 +292,7 @@ def bias_probe(dataset, root, stem, argv=None):
     trained on the bias labels of a balanced (major_ratio 0.5) build, batch
     128, checkpoints every 10 epochs under
     ./exp_results/{stem}-{num_data}-seed{seed}/. Returns (model, history)."""
+    pin_fp32_precision()
     from diagan_tpu_torch.models.convnets import SimpleConvNet
     from diagan_tpu_torch.train.classifier import train_classifier
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import argparse
 
 from diagan_tpu_torch.data.ffhq import prepare_npy
+from diagan_tpu_torch.device import pin_fp32_precision
 
 
 def build_parser():
@@ -28,6 +29,7 @@ def build_parser():
 
 def main(argv=None):
     """Write the npy store; returns {size: array}."""
+    pin_fp32_precision()
     parser = build_parser()
     args = parser.parse_args(argv)
     if not args.path or not args.out:

@@ -27,7 +27,7 @@ from pathlib import Path
 
 from diagan_tpu_torch.data.generated import load_generated
 from diagan_tpu_torch.data.predefined import get_predefined_dataset
-from diagan_tpu_torch.device import resolve_device
+from diagan_tpu_torch.device import pin_fp32_precision, resolve_device
 from diagan_tpu_torch.eval.cae_protocol import generate_dataset, train_cae
 from diagan_tpu_torch.eval.drs import DRS
 from diagan_tpu_torch.eval.evaluate import Sampler, load_eval_models, make_disc_fn, make_gen_fn
@@ -63,6 +63,7 @@ def build_parser():
 
 def main(argv=None):
     """Returns the RE matrix [N_real, epochs]."""
+    pin_fp32_precision()
     parser = build_parser()
     args = parser.parse_args(argv)
     device = resolve_device(args.device)

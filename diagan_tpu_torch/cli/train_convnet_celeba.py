@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from diagan_tpu_torch.data.sources import CELEBA_ATTR_NAMES, load_celeba
-from diagan_tpu_torch.device import resolve_device
+from diagan_tpu_torch.device import pin_fp32_precision, resolve_device
 from diagan_tpu_torch.models.convnets import AttrClassifier
 from diagan_tpu_torch.train.classifier import predict_classifier, train_classifier
 from diagan_tpu_torch.utils import set_seed
@@ -55,6 +55,7 @@ def build_parser():
 
 def main(argv=None):
     """Train and evaluate; returns (model, history, val_acc, test_acc)."""
+    pin_fp32_precision()
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     set_seed(args.seed)

@@ -33,7 +33,7 @@ import torch
 
 from diagan_tpu_torch.cli.common import data_parallel_from_args
 from diagan_tpu_torch.data.ffhq import load_ffhq
-from diagan_tpu_torch.device import resolve_device
+from diagan_tpu_torch.device import pin_fp32_precision, resolve_device
 from diagan_tpu_torch.models.stylegan2 import StyleGAN2Discriminator, StyleGAN2Generator
 from diagan_tpu_torch.train.stylegan2_trainer import StyleGAN2Trainer
 
@@ -152,6 +152,7 @@ def make_trainer(args, sample_weights=None, drs=False, r1=None):
 
 def main(argv=None):
     """Train phase 1; returns the trainer."""
+    pin_fp32_precision()
     args = build_parser().parse_args(argv)
     trainer, start = make_trainer(args)
     return trainer.train(start_step=start)

@@ -22,12 +22,13 @@ from pathlib import Path
 import numpy as np
 
 from diagan_tpu_torch.cli.train_ffhq import build_parser, make_trainer
-from diagan_tpu_torch.device import resolve_device
+from diagan_tpu_torch.device import pin_fp32_precision, resolve_device
 from diagan_tpu_torch.score import calculate_scores, warn_if_degenerate_weights
 
 
 def main(argv=None):
     """Train phase 2; returns the trainer."""
+    pin_fp32_precision()
     parser = build_parser()
     parser.add_argument("--p1_step", default=200000, type=int)
     parser.add_argument("--baseline_exp_name", type=str)

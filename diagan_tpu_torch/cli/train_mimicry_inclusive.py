@@ -23,6 +23,7 @@ import argparse
 
 from diagan_tpu_torch.cli.common import add_common_train_flags
 from diagan_tpu_torch.cli.mnist_scripts import _dataset, _decay, _gen_fn_from_trainer, _setup
+from diagan_tpu_torch.device import pin_fp32_precision
 from diagan_tpu_torch.models.registry import get_gan_model
 from diagan_tpu_torch.train.inclusive import InclusiveTrainer
 from diagan_tpu_torch.utils.plot import plot_color_mnist_generator, print_num_params
@@ -51,6 +52,7 @@ def build_parser():
 
 def main(argv=None):
     """Returns the trainer (with .channel_counts after a Colored-MNIST run)."""
+    pin_fp32_precision()
     args, device, save_path = _setup(build_parser(), argv)
     bundle = get_gan_model(dataset_name=args.dataset, model="mnistgan", num_pack=args.num_pack,
                            loss_type=args.loss_type, topk=args.topk == 1, device=device)

@@ -31,7 +31,7 @@ from diagan_tpu_torch.cli.common import (
     step_fusions_from_args,
 )
 from diagan_tpu_torch.data.predefined import get_predefined_dataset
-from diagan_tpu_torch.device import resolve_device
+from diagan_tpu_torch.device import pin_fp32_precision, resolve_device
 from diagan_tpu_torch.models.registry import get_gan_model
 from diagan_tpu_torch.train.trainer import LogTrainer
 from diagan_tpu_torch.utils import set_seed
@@ -60,6 +60,7 @@ def build_parser():
 
 def main(argv=None):
     """Train phase 2; returns the trainer."""
+    pin_fp32_precision()
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     dp, device = data_parallel_from_args(args, device)

@@ -39,7 +39,7 @@ import sys
 import numpy as np
 import torch
 
-from diagan_tpu_torch.device import resolve_device
+from diagan_tpu_torch.device import pin_fp32_precision, resolve_device
 from diagan_tpu_torch.eval import inception
 from diagan_tpu_torch.eval.inception import InceptionFeaturizer, InceptionV3, load_torch_weights
 from diagan_tpu_torch.eval.lpips import LPIPS
@@ -158,6 +158,7 @@ def build_parser():
 
 def main(argv=None):
     """Run the stages; returns the exit code (0 when all passed)."""
+    pin_fp32_precision()
     p = build_parser()
     args = p.parse_args(argv)
     if not (args.inception or args.lpips_vgg):

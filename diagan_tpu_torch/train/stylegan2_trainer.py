@@ -580,7 +580,9 @@ class StyleGAN2Trainer:
         if step % self.log_every == 0:
             if self.dp is not None:  # the logged metrics averaged over the ranks
                 all_reduce_mean_(list(self.metrics.values()), self.dp)
-            parts = "; ".join(f"{k}: {float(v):.4f}" for k, v in self.metrics.items())
+            # sorted keys, as the JAX trainer's pytree metrics print
+            # (scripts/soak_report.py reads path before r1)
+            parts = "; ".join(f"{k}: {float(self.metrics[k]):.4f}" for k in sorted(self.metrics))
             if self.is_main:
                 print(f"step {step}: {parts}; ada_p: {self.ada_aug_p:.4f}", flush=True)
         if (self.logit_save_steps and step % self.logit_save_steps == 0

@@ -8,8 +8,9 @@ same data and the same injected draws: the JAX step's index and latent draws
 and its dropout masks (jax.random.bernoulli) are patched while it traces to
 return numpy arrays that the port's step takes through its draws object. The
 cases: phase 1 (ns loss); phase 2 with the twin DRS D and GOLD active
-(MNIST-FMNIST's one channel); top-k (hinge); PacGAN (num_pack 2); and one
-toy step on 25-Gaussians points. Each Adam update's gradients are recorded
+(MNIST-FMNIST's one channel); top-k (hinge); PacGAN (num_pack 2); and the
+toy's phase-1 and phase-2 steps (the latter with the twin DRS D) on
+25-Gaussians points. Each Adam update's gradients are recorded
 on both sides (an optax wrapper that keeps them; an optimizer pre-hook).
 
 Both packages take every ReLU and LeakyReLU decision of the step, in call
@@ -86,6 +87,7 @@ CASES = {
     "topk": ("dcgan", 3, "hinge", False, False, True, 1, 5),
     "pacgan": ("dcgan", 3, "ns", False, False, False, 2, 0),
     "toy": ("toy", 2, "ns", False, False, False, 1, 0),
+    "toy_phase2_drs": ("toy", 2, "ns", True, False, False, 1, 0),
 }
 
 
