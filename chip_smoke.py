@@ -80,11 +80,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   8b. one fused SNGAN phase-2 step, card against CPU, injected draws;
   9. evaluation (random Inception weights, from a seed): 9a the FID
      InceptionV3 card against CPU on 4 images; 9b cli.eval_gan_drs with its
-     counts cut to EVAL_N (FID 5k/5k, IS 5k, precision/recall 5k/5k, DRS at
+     counts cut to EVAL_N (FID 3k/3k, IS 3k, precision/recall 3k/3k, DRS at
      batch 256; the CLI's FID and IS counts are 50k, precision/recall's
      10k) on the SNGAN phase-2
-     run, KID 5k/5k, and cli.eval_gan_with_index against the phase-1 logits
-     (5k fakes), every score finite and no port kernel launched, with
+     run, KID 3k/3k, and cli.eval_gan_with_index against the phase-1 logits
+     (3k fakes), every score finite and no port kernel launched, with
      the wall seconds of real features, fake generation, featurisation and
      sqrtm; 9c FID with DRS of the StyleGAN2-256 phase-2 checkpoint (the
      eps-jitter sqrtm), whose kernel A and fused-act launches join the
@@ -202,6 +202,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      the acceptance and the three coverage lines beside the JAX package's
      hardware run; entered with TF32 on, after it a conv and a matmul
      against float64 within 1e-5 (the CLIs' pinned fp32).
+ 18. the headline benchmark through cli.bench's functions at full width,
+     its counts cut (one 25-step SNGAN-32 window after 5 steps, a DRS quota
+     of 5,000; the StyleGAN2-256 bf16 windows whole): its line, every
+     number finite and > 0, each MFU at most 100, the port's FLOP count of
+     the amortised StyleGAN2 step beside XLA's 19148.8 GFLOP for the JAX
+     program; the launches of each part (none on SNGAN or DRS, no warp
+     kernel at ADA p 0, the interleaved warp pair and A4-A7 at p 0.05, never
+     the two-phase pair, the polyphase or the generic instances); both FLOP
+     counts within 10% of XLA's counts of the JAX programs; 18b a profile of
+     StyleGAN2 steps 29-32 at p 0.
 Each phase prints its start, in seconds since the script started.
 The last lines are the kernels' JSON, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a card it exits 2 and prints no result.
@@ -1950,7 +1960,7 @@ EVAL_STEP, EVAL_P1_STEP, EVAL_SCORE = 40, 30, "ldr_conf_1.0_ratio_50"  # phase 8
 # phase 9b's sample counts: the eval CLIs' are at most EVAL_N (a depth cut of
 # the CLIs' FID and IS counts of 50,000 and PR's 10,000, to keep the script
 # inside its limit)
-EVAL_N = 5000
+EVAL_N = 3000
 # the JSONs of phase 9b: cli.eval_gan_drs's counts (FID, IS, PR), KID at
 # EVAL_N, and cli.eval_gan_with_index's FID of the 100 highest- and
 # lowest-scored reals against EVAL_N fakes
@@ -4752,6 +4762,98 @@ def toy_protocol_path(dev, smi, work):
             "one toy phase-2 step (batch 256, twin D)", smi, ())
 
 
+# --- 18. the headline benchmark ----------------------------------------------
+# cli.bench's counts cut in depth (the CLI's: 50 + 200 SNGAN steps, a DRS
+# quota of 50,000); its widths, batches and StyleGAN2 windows as they are
+BENCH_CUTS = {"sngan_warm": 5, "sngan_timed": 25, "drs_quota": 5000}
+ADA_FIR = ("fir12y_up2", "fir12x_up2", "fir12y_down2", "fir12x_down2")  # A4-A7
+POLY_FIR = ("fir6x6", "fir6y")  # the polyphase resample's instances (opt-in)
+
+
+def add_launches(kernels, run):
+    """One path's launches (cli.bench.launches()) joined to the kernels
+    line's rows: the bf16 rows take those on bf16 tensors, the others the
+    rest."""
+    bf16 = run["bf16"]
+    for k in kernels:
+        name = k["name"]
+        if name in run["kernels"]:
+            k["launches"] += run["kernels"][name] - bf16.get(name, 0)
+        elif name.startswith("upfirdn2d/"):
+            inst = name.split("/", 1)[1]
+            k["launches"] += run["fir"].get(inst, 0) - bf16.get(f"upfirdn2d/{inst}", 0)
+        elif name.startswith("upfirdn2d_bf16/"):
+            k["launches"] += bf16.get("upfirdn2d/" + name.split("/", 1)[1], 0)
+        elif name.endswith("_bf16"):
+            k["launches"] += bf16.get(name[:-len("_bf16")], 0)
+
+
+def bench_path(dev, smi, work, kernels):
+    """18. cli.bench's headline function at full width with its counts cut
+    (BENCH_CUTS): SNGAN-32 steps/s and MFU, DRS accepted/s, StyleGAN2-256
+    bf16 at ADA p 0 and 0.05 over global steps 25-49, and both FLOP counts;
+    its line printed on a line of its own. Checks: every number finite and >
+    0, each MFU in (0, 100]; the FLOP counts within 10% of XLA's counts of
+    the JAX programs (cli.bench's JAX_SNGAN_GFLOP, at most 10% above it;
+    JAX_SG2_GFLOP, either side); the port's kernel launches of each part:
+    none on SNGAN or DRS; at p = 0 kernel A's bf16 A1-A3 and the fused act's
+    three kernels, no warp kernel and no ADA instance; at p = 0.05 also the
+    interleaved warp pair and A4-A7; never the two-phase pair, the polyphase
+    instances or the generic one. The launches join the kernels line."""
+    from diagan_tpu_torch.cli import bench
+
+    card = bench.card_info()
+    check(f"{card['name']}, {card['power_limit']}" == smi, f"card {card} against {smi}")
+    t0 = time.perf_counter()
+    out, runs = bench.headline(dev, card, **BENCH_CUTS)
+    wall = time.perf_counter() - t0
+    print(f"cli.bench line (counts cut {BENCH_CUTS}): {json.dumps(out)}")
+    for k, v in out.items():
+        check(k in ("metric", "unit", "device", "precision") or (
+            isinstance(v, float) and math.isfinite(v) and v > 0), f"bench {k}: {v}")
+    check(0 < out["mfu_pct"] <= 100 and 0 < out["sg2_256_mfu_pct"] <= 100,
+          f"MFU {out['mfu_pct']}, {out['sg2_256_mfu_pct']}")
+    sngan_ratio = out["flops_per_step"] / bench.JAX_SNGAN_GFLOP
+    sg2_ratio = out["sg2_256_gflop_per_step"] / bench.JAX_SG2_GFLOP
+    check(1.0 <= sngan_ratio <= 1.1 and 0.9 <= sg2_ratio <= 1.1,
+          f"FLOP counts against XLA's: SNGAN {sngan_ratio}, StyleGAN2 {sg2_ratio}")
+    for part in ("sngan", "drs"):
+        check(not any(runs[part].values()), f"bench {part} launched port kernels {runs[part]}")
+    for p, warp in ((0.0, False), (bench.SG2_ADA_P, True)):
+        run = runs[f"sg2 p={p}"]
+        ks, fir, bf16 = run["kernels"], run["fir"], run["bf16"]
+        check(all(ks.get(k, 0) > 0 for k in BF16_FLR + ("upfirdn2d", "upfirdn2d_backward")) and
+              all(bf16.get(f"upfirdn2d/{i}", 0) > 0 for i in BF16_FIR) and
+              all(bf16.get(k, 0) > 0 for k in BF16_FLR), f"bench sg2 p={p} launches {run}")
+        check(all((ks.get(k, 0) > 0) == warp for k in WARP) and
+              all((fir.get(i, 0) > 0) == warp for i in ADA_FIR), f"bench sg2 p={p} ADA {run}")
+        check(not any(ks.get(k, 0) for k in WARP2) and
+              not any(fir.get(i, 0) for i in POLY_FIR + ("generic",)),
+              f"bench sg2 p={p} launched the polyphase or generic kernels: {run}")
+        add_launches(kernels, run)
+    print(f"cli.bench launches by part: {json.dumps(runs)}")
+    print(f"cli.bench wall {wall:.2f} s [{smi}]")
+
+
+def bench_profiles(dev, smi, work, steps):
+    """18b. A profile of the bench's StyleGAN2-256 bf16 global steps `steps`
+    (ADA p 0) on a fresh bench trainer after 3 steps, apart from the timed
+    windows. The profiler's host cost lengthens the wall time it reports, so
+    a host-bound loop's idle share reads high: its device busy time a step
+    beside the timed window's wall is the truer one."""
+    from diagan_tpu_torch.cli import bench
+
+    tr = bench.sg2_trainer(dev, work / "bench_sg2")
+    tr.ada_aug_p = 0.0
+    for step in range(3):
+        tr.train_step(step)
+    profile(lambda: [tr.train_step(s) for s in steps],
+            f"bench StyleGAN2-256 steps {steps.start}-{steps.stop - 1} (bf16, batch 16, ADA p "
+            f"0; {[bench.step_kind(tr, s) for s in steps]})", smi,
+            (*FIR_TAGS, "flr_", "implicit_convolve_sgemm", "nchwToNhwc", "nhwcToNchw"))
+    del tr
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -5154,6 +5256,12 @@ def main(argv=None):
     # 17. the 25-Gaussians two-phase protocol, no port kernel; the CLIs' precision
     phase("17. cli.smoke_toy: the 25-Gaussians protocol at full depth; fp32 after a CLI")
     toy_protocol_path(dev, smi, work / "toy")
+
+    # 18. the headline benchmark, cli.bench's functions at full width
+    phase("18. cli.bench: SNGAN-32 steps/s and MFU, DRS, StyleGAN2-256 bf16 at ADA p 0 and 0.05")
+    bench_path(dev, smi, work, kernels)
+    phase("18b. a profile of bench StyleGAN2-256 steps 29-32 (3 plain, R1 + path length)")
+    bench_profiles(dev, smi, work, range(29, 33))
 
     shutil.rmtree(work, ignore_errors=True)
     phase("done")

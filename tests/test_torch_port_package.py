@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 from diagan_tpu_torch import resolve_device  # noqa: E402
 from diagan_tpu_torch.cli import (  # noqa: E402
+    bench,
     count_attr_celeba,
     eval_gan,
     eval_gan_celeba_with_attr,
@@ -115,7 +116,8 @@ def test_port_imports_with_jax_unavailable():
             "diagan_tpu_torch.cli.train_convnet_celeba", "diagan_tpu_torch.cli.count_attr_celeba",
             "diagan_tpu_torch.cli.disc_score_celeba_with_attr",
             "diagan_tpu_torch.cli.eval_gan_celeba_with_attr",
-            "diagan_tpu_torch.cli.eval_gan_drs_celeba_with_attr"} <= set(names)
+            "diagan_tpu_torch.cli.eval_gan_drs_celeba_with_attr",
+            "diagan_tpu_torch.cli.bench"} <= set(names)
 
 
 def _no_card(monkeypatch):
@@ -156,6 +158,7 @@ def _no_card(monkeypatch):
     lambda: eval_gan_celeba_with_attr.main(["--netG_ckpt_step", "1", "--work_dir", "unused"]),
     lambda: eval_gan_drs_celeba_with_attr.main(["--netG_ckpt_step", "1",
                                                 "--work_dir", "unused"]),
+    lambda: bench.main([]),
 ], ids=["resolve_device", "generator", "discriminator", "drs", "sampler", "generate_cli",
         "train_ffhq_cli", "train_ffhq_phase2_cli", "trainer", "mimicry_phase1_cli",
         "mimicry_phase2_cli", "log_trainer", "device_data_source", "get_gan_model",
@@ -163,7 +166,7 @@ def _no_card(monkeypatch):
         "evaluate_checkpoint", "eval_gan_cli", "eval_gan_drs_cli", "eval_gan_with_index_cli",
         "eval_gan_drs_with_index_cli", "simple_convnet", "simple3dnet", "simple_net",
         "attr_classifier", "train_convnet_celeba_cli", "count_attr_celeba_cli",
-        "eval_gan_celeba_with_attr_cli", "eval_gan_drs_celeba_with_attr_cli"])
+        "eval_gan_celeba_with_attr_cli", "eval_gan_drs_celeba_with_attr_cli", "bench_cli"])
 def test_entry_points_without_device_raise_when_no_card(monkeypatch, entry):
     _no_card(monkeypatch)
     with pytest.raises(RuntimeError, match="device='cpu'"):
