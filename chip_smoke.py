@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (diagan_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--kernels-only] [--against ROOT]
+    python3 chip_smoke.py [--kernels-only] [--against ROOT ...]
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. card name and power limit (nvidia-smi); IEEE fp32 for convs and matmuls
@@ -12,8 +12,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      every main-path shape (G and D blurs and the ToRGB skip at batch 16 and
      the serving batch of 32, ADA's passes of both forms at each pad bucket),
      each instance's edge shapes (odd widths, 8-9 px planes, pads of both
-     parities) and the odd configurations of the CPU tests: fp32, bf16 and
-     channels-last, each call launching the instance fir_instance names,
+     parities), channels-last at C = 64, 128 and 3, and the odd
+     configurations of the CPU tests: fp32, bf16, and channels-last in both,
+     each call launching the instance fir_instance names,
      then the backward and double backward; fused bias-LeakyReLU at the real
      shapes in fp32 and bf16;
   3b. the training kernels against their plain versions: the fused-act
@@ -40,7 +41,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      pair likewise, its gather in turns with the interleaved gather and
      grid_sample, its adjoint with grid_sample's backward and --against's
      two-phase adjoint; kernel A's generic instance on the channels-last G
-     blur against cuDNN (--kernels-only stops here);
+     blur (fp32 and bf16) and an up-2 pass against cuDNN, each running the
+     channels-last kernel named for it; with --against, kernel A of ROOT
+     too: its fp32 instances and the bf16 A1-A3 (phase 14d's shapes) must
+     give the same bits, and each is timed in the same turns
+     (--kernels-only stops here);
   4. the serving slice at full width (StyleGAN2-256, channel_multiplier 2,
      style_dim 512, n_mlp 8, random weights from a seed): save a checkpoint,
      run cli.generate, draw DRS samples, with the launch counts (per kernel,
@@ -270,7 +275,14 @@ def cuda_ms(fn, iters=10, warmup=2):
 def graph_ms(fn, iters=10):
     """Device time of one call of fn: `iters` calls captured in a CUDA graph,
     whose replays are timed with CUDA events, so the host's cost of each
-    launch (Python, the wrapper, the CUDA launch call) is left out."""
+    launch (Python, the wrapper, the CUDA launch call) is left out. A call
+    under 50 us is timed again over ten times the calls, so that a replay
+    lasts long enough to compare two such kernels within a few percent."""
+    ms = _graph_ms(fn, iters)
+    return _graph_ms(fn, 10 * iters) if ms < 0.05 else ms
+
+
+def _graph_ms(fn, iters):
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up outside the graph
@@ -347,7 +359,8 @@ def profile(fn, label, smi, tags):
 
 FORWARD_KERNELS = ("upfirdn2d", "fused_leaky_relu")  # what sampling launches
 # kernel A's device kernels in a profile: all of them, then by kernel
-FIR_TAGS = ("fir_", "fir_kernel", "fir_xdown2_kernel", "fir_generic_kernel")
+FIR_TAGS = ("fir_", "fir_kernel", "fir_vec_kernel", "fir_xdown2_kernel", "fir_generic_kernel",
+            "fir_cl")
 WARP = ("affine_warp_gather", "affine_warp_scatter")  # ADA's interleaved resample
 WARP2 = ("affine_warp2_gather", "affine_warp2_scatter")  # its polyphase form
 N_DATA = 512  # synthetic training images
@@ -522,8 +535,9 @@ def fir_cases(dev, ch, k4):
     cases are not `full`); then each instance's family off the main paths
     (odd widths like 257, widths that are not a multiple of the 32-lane tile
     or of the pair store, 8-9 px planes, pads of both parities, taps that are
-    not symmetric); then the odd configurations of the port's CPU tests,
-    which the generic instance takes where they are not a family."""
+    not symmetric); channels-last widths of the JAX package's NHWC FIRs
+    (C = 64 and 128) and C = 3; then the odd configurations of the port's
+    CPU tests, which the generic instance takes where they are not a family."""
     from diagan_tpu_torch.models.ada import PAD_K, _polyphase_taps, _sym6_taps
     from diagan_tpu_torch.ops import make_resample_kernel
     from diagan_tpu_torch.ops.ada_phase import PARITIES
@@ -560,6 +574,12 @@ def fir_cases(dev, ch, k4):
         for shape in ((2, 5, 9, 9), (2, 3, 37, 257), (1, 2, 8, 70), (3, 4, 9, 8)):
             cases.append((shape, taps, up, dn, (px0, px1, py0, py1)))
             cases.append((shape, taps, up, dn, (px0 + 1, px1 - 1, py0 + 1, py1 - 1)))
+    # C = 64 (the width of #3, _fir2d_pair) and 128 (#2, _fir2d_nhwc): the
+    # generic instance's channels-last bodies, the fixed 4x4 one and the
+    # run-time one (up 2, down 2); C = 3 channels-last keeps the tile body
+    cases += [((2, 64, 33, 33), k16, 1, 1, (1, 1)), ((2, 128, 17, 17), k4, 1, 1, (2, 2)),
+              ((2, 64, 16, 16), k16, 2, 1, (2, 1)), ((2, 128, 32, 32), k4, 1, 2, (1, 1)),
+              ((2, 3, 33, 33), k16, 1, 1, (1, 1))]
     asym = torch.randn(3, 4, generator=gen, device=dev)
     row5 = torch.randn(1, 5, generator=gen, device=dev)
     small = (2, 3, 12, 9)
@@ -575,33 +595,67 @@ def fir_cases(dev, ch, k4):
     return [c if len(c) == 6 else (*c, True) for c in cases]
 
 
+def cl_launches():
+    """Launches of kernel A's channels-last bodies so far, (fir_cl_kernel,
+    fir_cl_fixed_kernel): the generic instance's dispatch between them and
+    the tile body, read from csrc/upfirdn2d.cu's own counts."""
+    import ctypes
+
+    from diagan_tpu_torch.ops import _build
+
+    fn = _build.load("upfirdn2d").upfirdn2d_cl_launches
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int]
+    return fn(0), fn(1)
+
+
 def check_fir(dev, rng, cases):
     """Kernel A against its plain version on each case: the forward in fp32,
-    bf16 and channels-last, each call launching exactly the instance that
-    fir_instance names (the generic one for channels-last); then in fp32 the
+    bf16, and channels-last in both, each call launching exactly the instance
+    that fir_instance names (the generic one for channels-last), a generic
+    launch taking a channels-last body exactly when the tensors' channel
+    vectors are 16-byte aligned (_cl_vec_fits), the fixed one exactly for
+    4x4 taps at up = down = 1 (_cl_fixed); then in fp32 the
     backward and the double backward against autograd through the plain
     version; a case that is not `full` only in fp32, forward. Returns
     {instance: max fp32 abs err} and the largest forward and backward
     errors."""
     from diagan_tpu_torch.ops import _build, upfirdn2d, upfirdn2d_plain
-    from diagan_tpu_torch.ops.upfirdn2d import _backward_args, fir_instance, layout
+    from diagan_tpu_torch.ops.upfirdn2d import (
+        _backward_args,
+        _cl_fixed,
+        _cl_vec_fits,
+        fir_instance,
+        layout,
+    )
 
-    errs, err_fwd, err_bwd = {}, 0.0, 0.0
+    errs, err_fwd, err_bwd, n_cl = {}, 0.0, 0.0, 0
 
     def note(inst, e):
         errs[inst] = max(errs.get(inst, 0.0), e)
 
     for shape, taps, up, down, pad, full in cases:
         x32 = torch.randn(shape, generator=rng, device=dev)
-        layouts = (x32, x32.bfloat16(), x32.contiguous(memory_format=torch.channels_last))
+        layouts = (x32, x32.bfloat16(), x32.contiguous(memory_format=torch.channels_last),
+                   x32.bfloat16().contiguous(memory_format=torch.channels_last))
         for x in layouts if full else layouts[:1]:
             inst = fir_instance(*taps.shape, up, down, x.dtype, layout(x))
             _build.reset_launches()
+            cl0 = cl_launches()
             got = upfirdn2d(x, taps, up, down, pad)
             torch.cuda.synchronize()
             launched = {k: v for k, v in _build.FIR_INSTANCES.items() if v}
             check(launched == {inst: 1}, f"upfirdn2d {shape} {x.dtype} launched {launched}, "
                                          f"not {inst}")
+            cl = inst == "generic" and _cl_vec_fits(shape[1], x.stride(), got.stride(),
+                                                    x.data_ptr(), got.data_ptr(),
+                                                    x.element_size())
+            fixed = cl and _cl_fixed(*taps.shape, up, down)
+            ran = tuple(b - a for a, b in zip(cl0, cl_launches()))
+            check(ran == (int(cl and not fixed), int(fixed)),
+                  f"upfirdn2d {shape} {x.dtype} {layout(x)}: the channels-last bodies "
+                  f"(run-time, fixed) launched {ran} times")
+            n_cl += cl
             want = upfirdn2d_plain(x, taps, up, down, pad)
             check(got.shape == want.shape and got.dtype == want.dtype,
                   f"upfirdn2d {shape} shape/dtype")
@@ -635,9 +689,12 @@ def check_fir(dev, rng, cases):
             note(inst, e)
             err_bwd = max(err_bwd, e)
         del x, x32, v, w, res, got, want
+    check(n_cl > 0, "no case took the channels-last body")
     print(f"upfirdn2d: {len(cases)} cases (every main-path shape, each instance's edge shapes, "
-          f"the odd configurations) x (fp32, bf16, channels-last) match plain, each launching "
-          f"the instance fir_instance names; backward and double backward in fp32 match "
+          f"channels-last at C = 64, 128 and 3, the odd configurations) x (fp32, bf16, "
+          f"channels-last fp32 and bf16) match plain, each launching "
+          f"the instance fir_instance names ({n_cl} generic calls on the channels-last body, "
+          f"each where _cl_vec_fits says); backward and double backward in fp32 match "
           f"autograd through plain. Max fp32 abs err by instance: "
           f"{ {k: float(f'{v:.3e}') for k, v in sorted(errs.items())} } (tol 1e-5 x max|out|; "
           f"bf16 1e-2 x max|out|)")
@@ -1284,6 +1341,53 @@ def against_warp(root):
     return {"root": root, "gather": gather_fn, "scatter": scatter_fn, "scatter2": scatter2_fn}
 
 
+def against_fir(root, tag=""):
+    """Kernel A of another checkout (its diagan_tpu_torch/csrc/upfirdn2d.cu,
+    built here with the port's nvcc flags), called as ops/upfirdn2d.py calls
+    upfirdn2d_forward (the same signature and instance codes), for timing and
+    comparing against this one on the same card: a function with the
+    arguments and output of upfirdn2d's forward."""
+    import ctypes
+
+    from diagan_tpu_torch.ops import _build
+    from diagan_tpu_torch.ops.upfirdn2d import (
+        _DTYPE_CODE,
+        FIR_INSTANCES,
+        _out_size,
+        _parse,
+        fir_instance,
+        layout,
+    )
+
+    src = Path(root) / "diagan_tpu_torch" / "csrc" / "upfirdn2d.cu"
+    lib_path = _build.BUILD_DIR / f"against_upfirdn2d{tag}.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path), str(src)],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib_path)).upfirdn2d_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 8
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
+    def fir(x, taps, up=1, down=1, pad=(0, 0)):
+        (up_x, up_y), (down_x, down_y), (p_x0, p_x1, p_y0, p_y1) = _parse(up, down, pad)
+        n, c, h, w = x.shape
+        kh, kw = taps.shape
+        oh, ow = _out_size(h, up_y, p_y0, p_y1, kh, down_y), _out_size(w, up_x, p_x0, p_x1, kw,
+                                                                       down_x)
+        fmt = layout(x)
+        y = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device, memory_format=fmt)
+        inst = fir_instance(kh, kw, up, down, x.dtype, fmt)
+        err = fn(x.data_ptr(), y.data_ptr(), taps.data_ptr(), _DTYPE_CODE[x.dtype],
+                 FIR_INSTANCES.index(inst), n, c, h, w, oh, ow, *x.stride(), *y.stride(),
+                 kh, kw, up_x, up_y, down_x, down_y, p_x0, p_y0,
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"{root}: upfirdn2d_forward {inst} failed, code {err}")
+        return y
+    fir.root = root
+    return fir
+
+
 def entry_in_turns(fns, name, plain, b_by, smi, **fields):
     """The kernels-line entry of the warp kernel `name` among fns {label: fn}
     (another checkout's kernel first where there is one, the library call
@@ -1447,13 +1551,15 @@ def ada_passes(dev, P):
     return passes
 
 
-def time_fir_instances(dev, rng, ch, k4, smi):
+def time_fir_instances(dev, rng, ch, k4, smi, against=()):
     """Kernel A on every ADA pass of both forms at the largest pad and on the
     SIZE px blurs (the G upsample blur and its backward, the ToRGB skip and
     its backward), each against one cuDNN depthwise call and its bytes
     bound. Both are timed as device time (graph_ms) in turns, kernel A,
     cuDNN, cuDNN, kernel A, and kernel A also eagerly (cuda_ms: the host's
-    launch cost included). Then each instance at its largest such shape,
+    launch cost included); with `against` (against_fir: other checkouts'
+    kernel A) those too, first and last in the turns, after a check that
+    each gives the same bits. Then each instance at its largest such shape,
     with its plain version. Returns {instance: kernels-line entry, without
     launches and error}."""
     import torch.nn.functional as F
@@ -1478,14 +1584,19 @@ def time_fir_instances(dev, rng, ch, k4, smi):
          lambda x: F.conv2d(x, dw(k16, 3), stride=2, padding=1, groups=3)),
     ]
     passes += ada_passes(dev, ada_pads()[-1])
-    largest, sums = {}, {}
+    largest, sums, ratios = {}, {}, {}
     for form, name, shape, taps, up, down, pad, lib in passes:
         xp = torch.randn(shape, generator=rng, device=dev)
         y = upfirdn2d(xp, taps, up, down, pad)
         check(max_err(lib(xp), y) <= 1e-5 * y.abs().max().item(),
               f"depthwise yardstick disagrees with the {form} {name}")
         inst = fir_instance(*taps.shape, up, down, xp.dtype, torch.contiguous_format)
-        ms = in_turns({"a": lambda: upfirdn2d(xp, taps, up, down, pad), "lib": lambda: lib(xp)})
+        fns = {"a": lambda: upfirdn2d(xp, taps, up, down, pad), "lib": lambda: lib(xp)}
+        for o in reversed(against):
+            check(torch.equal(o(xp, taps, up, down, pad), y),
+                  f"{o.root}'s fp32 {inst} gives other bits on the {form} {name}")
+            fns = {o.root: lambda o=o: o(xp, taps, up, down, pad), **fns}
+        ms = in_turns(fns)
         (a1, a2), (l1, l2) = ms["a"], ms["lib"]
         t_a, t_lib = (a1 + a2) / 2, (l1 + l2) / 2
         t_eager = cuda_ms(lambda: upfirdn2d(xp, taps, up, down, pad))
@@ -1495,10 +1606,16 @@ def time_fir_instances(dev, rng, ch, k4, smi):
         if form != "blur":
             sums.setdefault(form, [0.0, 0.0, 0.0])
             sums[form] = [u + v for u, v in zip(sums[form], (t_a, t_lib, b_p))]
+        other = ""
+        for o in against:
+            o1, o2 = ms[o.root]
+            ratios.setdefault(o.root, {})
+            ratios[o.root][inst] = max(ratios[o.root].get(inst, 0.0), 2 * t_a / (o1 + o2))
+            other += f", {o.root} {o1:.4f} / {o2:.4f} ms (the same bits)"
         print(f"kernel A {inst}, {form} {name} {tuple(xp.shape)} -> {tuple(y.shape)}: "
-              f"{a1:.4f} / {a2:.4f} ms, cuDNN depthwise {l1:.4f} / {l2:.4f} ms (device time, "
-              f"two turns), bound {b_p:.4f} ms ({by}), {b_p / t_a:.2f} of the bound; kernel A "
-              f"eager {t_eager:.4f} ms [{smi}]")
+              f"{a1:.4f} / {a2:.4f} ms, cuDNN depthwise {l1:.4f} / {l2:.4f} ms{other} (device "
+              f"time, two turns), bound {b_p:.4f} ms ({by}), {b_p / t_a:.2f} of the bound; "
+              f"kernel A eager {t_eager:.4f} ms [{smi}]")
         if nbytes > largest.get(inst, (0,))[0]:
             plain = cuda_ms(lambda: upfirdn2d_plain(xp, taps, up, down, pad), iters=2, warmup=1)
             largest[inst] = (nbytes, {
@@ -1515,44 +1632,73 @@ def time_fir_instances(dev, rng, ch, k4, smi):
     for form, (t_a, t_lib, b_p) in sums.items():
         print(f"ADA {form} FIR passes summed (forward, and the up-pass backwards): kernel A "
               f"{t_a:.4f} ms, cuDNN depthwise {t_lib:.4f} ms, bound {b_p:.4f} ms [{smi}]")
+    for root, r in ratios.items():
+        print(f"fp32 kernel A against {root}: time / the other's, the largest over each "
+              f"instance's passes: { {k: round(v, 4) for k, v in r.items()} } [{smi}]")
     return {inst: entry for inst, (_, entry) in largest.items()}
 
 
-def time_fir_generic(dev, rng, ch, k4, smi):
-    """Kernel A's generic instance (A0) at one shape that the JAX package's
-    NHWC FIR (`_fir2d_nhwc`, #2) computes: the SIZE px G upsample blur with the
-    input channels-last, which fir_instance sends to the generic instance.
-    Device time (graph_ms) in turns with one cuDNN depthwise call on the same
-    channels-last input, its plain version and its bytes bound."""
+def time_fir_generic(dev, rng, ch, k4, smi, against=()):
+    """Kernel A's generic instance (A0) on channels-last input: the SIZE px G
+    upsample blur, (16, 128, 257, 257) channels-last, the shape of the JAX
+    package's NHWC FIR (`_fir2d_nhwc`, #2), in fp32 and bf16, and an up-2
+    pass at the same width. Each launches the generic instance and the
+    channels-last body named for it (cl_launches: the fixed 4x4 one, the
+    run-time one), matches its plain version (fp32 1e-5,
+    bf16 1e-2 x max|out|) and is timed as device time (graph_ms) in turns
+    with one cuDNN call on the same channels-last input (and with `against`,
+    other checkouts' kernel A), beside its plain version and its bytes
+    bound."""
     import torch.nn.functional as F
 
     from diagan_tpu_torch.ops import _build, upfirdn2d, upfirdn2d_plain
     from diagan_tpu_torch.ops.upfirdn2d import fir_instance
 
     c, k16 = ch[SIZE], k4 * 4
-    x = torch.randn((16, c, SIZE + 1, SIZE + 1), generator=rng, device=dev)
-    x = x.contiguous(memory_format=torch.channels_last)
-    inst = fir_instance(4, 4, 1, 1, x.dtype, torch.channels_last)
-    check(inst == "generic", f"the channels-last blur takes {inst}")
-    w = k16.expand(c, 1, 4, 4).contiguous()
-    before = _build.FIR_INSTANCES["generic"]
-    y = upfirdn2d(x, k16, 1, 1, (1, 1))
-    check(_build.FIR_INSTANCES["generic"] == before + 1, "the generic instance did not launch")
-    err = max_err(y, upfirdn2d_plain(x, k16, 1, 1, (1, 1)))
-    check(err <= 1e-5 * y.abs().max().item(), f"generic instance err {err}")
-    check(max_err(F.conv2d(x, w, padding=1, groups=c), y) <= 1e-5 * y.abs().max().item(),
-          "depthwise yardstick disagrees with the generic instance")
-    ms = in_turns({"a": lambda: upfirdn2d(x, k16, 1, 1, (1, 1)),
-                   "lib": lambda: F.conv2d(x, w, padding=1, groups=c)})
-    (a1, a2), (l1, l2) = ms["a"], ms["lib"]
-    plain = cuda_ms(lambda: upfirdn2d_plain(x, k16, 1, 1, (1, 1)), iters=2, warmup=1)
-    b_p, by = bound((x.numel() + y.numel()) * 4, y.numel() * 16 * 2)
-    print(f"kernel A generic (A0), G upsample blur channels-last {tuple(x.shape)} -> "
-          f"{tuple(y.shape)} fp32 (the NHWC FIR #2's layout): {a1:.4f} / {a2:.4f} ms, cuDNN "
-          f"depthwise on the same channels-last input {l1:.4f} / {l2:.4f} ms (device time, two "
-          f"turns), plain {plain:.4f} ms, bound {b_p:.4f} ms ({by}), {2 * b_p / (a1 + a2):.2f} "
-          f"of the bound; max abs err vs plain {err:.3e} [{smi}]")
-    del x, y
+    cl = torch.channels_last
+    passes = [
+        ("G upsample blur", (16, c, SIZE + 1, SIZE + 1), 1, 1, (1, 1), "fir_cl_fixed_kernel",
+         (0, 1), lambda x, w: F.conv2d(x, w, padding=1, groups=c)),
+        ("up-2 pass", (16, c, SIZE // 2, SIZE // 2), 2, 1, (2, 1), "fir_cl_kernel", (1, 0),
+         lambda x, w: F.conv_transpose2d(x, w, stride=2, padding=1, groups=c)),
+    ]
+    for name, shape, up, down, pad, kernel, want_ran, lib in passes:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=rng, device=dev).to(dt).contiguous(memory_format=cl)
+            inst = fir_instance(4, 4, up, down, dt, cl)
+            check(inst == "generic", f"the channels-last {name} takes {inst}")
+            w = k16.to(dt).expand(c, 1, 4, 4).contiguous()
+            before, cl0 = _build.FIR_INSTANCES["generic"], cl_launches()
+            y = upfirdn2d(x, k16, up, down, pad)
+            ran = tuple(b - a for a, b in zip(cl0, cl_launches()))
+            check(_build.FIR_INSTANCES["generic"] == before + 1 and ran == want_ran
+                  and y.is_contiguous(memory_format=cl),
+                  f"the channels-last {name} launched the generic instance "
+                  f"{_build.FIR_INSTANCES['generic'] - before} times, its bodies (run-time, "
+                  f"fixed) {ran} times, not {kernel}")
+            want = upfirdn2d_plain(x, k16, up, down, pad)
+            err = max_err(y, want)
+            tol = 1e-5 if dt == torch.float32 else 1e-2
+            check(err <= tol * want.float().abs().max().item(), f"generic {name} {dt} err {err}")
+            check(max_err(lib(x, w), y) <= 2 * tol * y.float().abs().max().item(),
+                  f"the cuDNN yardstick disagrees with the generic instance's {name} {dt}")
+            fns = {"a": lambda: upfirdn2d(x, k16, up, down, pad), "lib": lambda: lib(x, w)}
+            for o in reversed(against):
+                fns = {o.root: lambda o=o: o(x, k16, up, down, pad), **fns}
+            ms = in_turns(fns)
+            (a1, a2), (l1, l2) = ms["a"], ms["lib"]
+            plain = cuda_ms(lambda: upfirdn2d_plain(x, k16, up, down, pad), iters=2, warmup=1)
+            b_p, by = bound((x.numel() + y.numel()) * x.element_size(),
+                            y.numel() * 16 // (up * up) * 2)
+            other = "".join(f", {o.root} {ms[o.root][0]:.4f} / {ms[o.root][1]:.4f} ms"
+                            for o in against)
+            print(f"kernel A generic (A0) {kernel}, {name} channels-last "
+                  f"{tuple(x.shape)} -> {tuple(y.shape)} {str(dt)[6:]}: {a1:.4f} / {a2:.4f} ms, "
+                  f"cuDNN on the same channels-last input {l1:.4f} / {l2:.4f} ms{other} (device "
+                  f"time, two turns), "
+                  f"plain {plain:.4f} ms, bound {b_p:.4f} ms ({by}), {2 * b_p / (a1 + a2):.2f} "
+                  f"of the bound; max abs err vs plain {err:.3e} [{smi}]")
+            del x, y, want
 
 
 def time_warp2(dev, rng, smi, errs, against=None):
@@ -3853,7 +3999,7 @@ def bf16_train_step_card_vs_cpu(dev, smi, work):
           f"{max(g_err.values()):.3e} ({max(g_yard.values()):.3e}) [{smi}]")
 
 
-def time_bf16_kernels(dev, rng, ch, k4, smi, runs):
+def time_bf16_kernels(dev, rng, ch, k4, smi, runs, against=()):
     """14d. The bf16 instances A1-A3 and the fused act's kernels at the bf16
     step's shapes (the SIZE px G upsample blur, the ToRGB skip and its
     backward; the styled conv's activation at SIZE px): each against its plain
@@ -3862,7 +4008,11 @@ def time_bf16_kernels(dev, rng, ch, k4, smi, runs):
     replay in turns with one cuDNN call in bf16, the fused act eagerly, as
     their fp32 rows), its plain version's and its bytes bound (bf16 reads and
     writes: half the fp32 bytes). Launches: the bf16 launches of phase 14a's
-    runs. Returns the kernels-line entries."""
+    runs (`runs`, empty in phase 3d). A1 also on the G upsample blur's
+    backward at SIZE and SIZE / 2 px, whose rows are 2^k + 1 wide (printed
+    only). With `against` (against_fir: other checkouts' kernel A), A1-A3
+    must give their bits, and each is timed in the same turns. Returns the
+    kernels-line entries."""
     import torch.nn.functional as F
 
     from diagan_tpu_torch.ops import (
@@ -3890,6 +4040,11 @@ def time_bf16_kernels(dev, rng, ch, k4, smi, runs):
          lambda x: F.conv_transpose2d(x, dw(k16, 3), stride=2, padding=1, groups=3)),
         ("ToRGB skip backward", (16, 3, SIZE, SIZE), 1, 2, (1, 1),
          lambda x: F.conv2d(x, dw(k16, 3), stride=2, padding=1, groups=3)),
+        ("G upsample blur backward", (16, c, SIZE, SIZE), 1, 1, (2, 2),
+         lambda x: F.conv2d(x, dw(k16, c), padding=2, groups=c)),
+        (f"G upsample blur backward at {SIZE // 2} px", (16, ch[SIZE // 2], SIZE // 2, SIZE // 2),
+         1, 1, (2, 2), lambda x: F.conv2d(x, dw(k16, ch[SIZE // 2]), padding=2,
+                                          groups=ch[SIZE // 2])),
     ]
     kernels = []
     for name, shape, up, down, pad, lib in passes:
@@ -3900,10 +4055,25 @@ def time_bf16_kernels(dev, rng, ch, k4, smi, runs):
         err = max_err(y, want)
         check(y.dtype == bf and err <= 1e-2 * want.float().abs().max().item(),
               f"kernel A {inst} bf16 {name} err {err}")
-        ms = in_turns({"a": lambda: upfirdn2d(x, k16, up, down, pad), "lib": lambda: lib(x)})
+        fns = {"a": lambda: upfirdn2d(x, k16, up, down, pad), "lib": lambda: lib(x)}
+        for o in reversed(against):
+            theirs = o(x, k16, up, down, pad)
+            same = torch.equal(theirs.view(torch.int16), y.view(torch.int16))
+            check(same, f"kernel A {inst} bf16 {name}: not {o.root}'s bits (max abs "
+                        f"difference {max_err(theirs, y):.3e})")
+            fns = {o.root: lambda o=o: o(x, k16, up, down, pad), **fns}
+        ms = in_turns(fns)
         (a1, a2), (l1, l2) = ms["a"], ms["lib"]
         plain = cuda_ms(lambda: upfirdn2d_plain(x, k16, up, down, pad), iters=2, warmup=1)
         b_p, by = bound((x.numel() + y.numel()) * 2, y.numel() * 16 // (up * up) * 2)
+        other = "".join(f", {o.root} {ms[o.root][0]:.4f} / {ms[o.root][1]:.4f} ms (the same "
+                        f"bits)" for o in against)
+        print(f"kernel A {inst} bf16, {name} {tuple(x.shape)} -> {tuple(y.shape)}: {a1:.4f} / "
+              f"{a2:.4f} ms, cuDNN in bf16 {l1:.4f} / {l2:.4f} ms{other} (device time, two "
+              f"turns), bound {b_p:.4f} ms ({by}), {2 * b_p / (a1 + a2):.2f} of the bound "
+              f"[{smi}]")
+        if "blur backward" in name:
+            continue
         kernels.append({
             "name": f"upfirdn2d_bf16/{inst}", "route": "cuda",
             "source": "diagan_tpu_torch/csrc/upfirdn2d.cu",
@@ -3955,8 +4125,9 @@ def time_bf16_kernels(dev, rng, ch, k4, smi, runs):
               f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms ({k['bound_by']}), "
               f"{k['bound_ms'] / k['ms']:.2f} of the bound; bf16 launches in phase 14a "
               f"{k['launches']} [{smi}]")
-    print(f"phase 14a's bf16 launches in all: {bf16} (flr_db "
-          f"{bf16.get('fused_leaky_relu_db', 0)}) [{smi}]")
+    if runs:
+        print(f"phase 14a's bf16 launches in all: {bf16} (flr_db "
+              f"{bf16.get('fused_leaky_relu_db', 0)}) [{smi}]")
     return kernels
 
 
@@ -4859,10 +5030,12 @@ def main(argv=None):
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after phase 3d (build, check and time the kernels, "
                              "check the polyphase resample)")
-    parser.add_argument("--against", metavar="ROOT",
-                        help="also time the warp adjoints and the interleaved gather of the "
-                             "checkout at ROOT (e.g. the parent commit's tree) in turns with "
-                             "this one")
+    parser.add_argument("--against", metavar="ROOT", action="append",
+                        help="also time kernel A, the warp adjoints and the interleaved gather "
+                             "of the checkout at ROOT (e.g. the parent commit's tree) in turns "
+                             "with this one, and check that kernel A's fp32 and bf16 "
+                             "instances give its bits; kernel A takes several ROOTs (the warp "
+                             "kernels the first)")
     parser.add_argument("--dp-worker", nargs=2, metavar=("DIR", "RANK"),
                         help="run one of phase 16b's two ranks (the script starts them)")
     args = parser.parse_args(argv)
@@ -4969,11 +5142,14 @@ def main(argv=None):
     # 3d. kernel A's instances against cuDNN, and the two-phase warp pair
     # beside the interleaved gather and grid_sample
     phase("3d. kernel A's instances against cuDNN; the warp pairs")
-    fir_kernels = time_fir_instances(dev, rng_b, ch, k4, smi)
-    time_fir_generic(dev, rng_b, ch, k4, smi)
+    fir_against = [against_fir(root, f"-{i}") for i, root in enumerate(args.against or [])]
+    fir_kernels = time_fir_instances(dev, rng_b, ch, k4, smi, fir_against)
+    time_fir_generic(dev, rng_b, ch, k4, smi, fir_against)
+    if fir_against:  # phase 14d's bf16 rows, here beside the other checkout's
+        time_bf16_kernels(dev, rng_b, ch, k4, smi, {}, fir_against)
     for inst, k in fir_kernels.items():
         k["max_abs_err"] = fir_errs[inst]
-    against = against_warp(args.against) if args.against else None
+    against = against_warp(args.against[0]) if args.against else None
     warp_kernels = time_warp(dev, rng_b, smi, errs, against)
     warp_kernels += time_warp2(dev, rng_b, smi, errs, against)
     if args.kernels_only:
