@@ -85,11 +85,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   8b. one fused SNGAN phase-2 step, card against CPU, injected draws;
   9. evaluation (random Inception weights, from a seed): 9a the FID
      InceptionV3 card against CPU on 4 images; 9b cli.eval_gan_drs with its
-     counts cut to EVAL_N (FID 3k/3k, IS 3k, precision/recall 3k/3k, DRS at
+     counts cut to EVAL_N (FID 2k/2k, IS 2k, precision/recall 2k/2k, DRS at
      batch 256; the CLI's FID and IS counts are 50k, precision/recall's
      10k) on the SNGAN phase-2
-     run, KID 3k/3k, and cli.eval_gan_with_index against the phase-1 logits
-     (3k fakes), every score finite and no port kernel launched, with
+     run, KID 2k/2k, and cli.eval_gan_with_index against the phase-1 logits
+     (2k fakes), every score finite and no port kernel launched, with
      the wall seconds of real features, fake generation, featurisation and
      sqrtm; 9c FID with DRS of the StyleGAN2-256 phase-2 checkpoint (the
      eps-jitter sqrtm), whose kernel A and fused-act launches join the
@@ -97,13 +97,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      9's peak device memory;
  10. the CelebA-64 Dia-GAN path and its attribute study at full width
      (SNGAN-64 ngf 1024, ndf 1024, batch 64, n_dis 5; AttrClassifier at 64
-     px) on 202,599 procedural images in CelebA's layout (celeba_64.npy and
+     px) on 25,000 procedural images in CelebA's layout (celeba_64.npy and
      list_attr_celeba.txt): cli.train_mimicry_phase1 -d celeba for 12 steps
      with two sweeps of the whole set, cli.train_mimicry_phase2 to step 16
      (ldr_conf_1.0_ratio_50, twin DRS D), cli.disc_score_celeba_with_attr,
      cli.train_convnet_celeba for 1 epoch on the first 20,000 images,
      cli.count_attr_celeba --drs and cli.eval_gan_drs_celeba_with_attr
-     --metric all at 2048 samples; no port kernel may launch; steps/s,
+     --metric all at 1024 samples; no port kernel may launch; steps/s,
      sweep seconds, DRS accepted/s, classifier images/s, wall s per CLI and
      peak memory; 10b one fused SNGAN-64 step and the AttrClassifier's
      forward and gradients, card against CPU;
@@ -122,8 +122,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      activations' sides of its float64 run;
  12. the CAE reconstruction-error protocol and the Inclusive GAN on phase
      11's runs: colour phase 1 resumed to step 400, cli.train_cae (2 epochs
-     of 50; the scripts' 50,000 generated images, through DRS for the
-     phase-2 run) on both colour runs and the FMNIST run,
+     of 50; 20,000 generated images of the scripts' 50,000, through DRS for
+     the phase-2 run) on both colour runs and the FMNIST run,
      cli.eval_ae_score --use_loss, cli.train_mimicry_inclusive for 4 steps
      at full DCGAN and Inception width (its construction registers the
      10,000 real features and refreshes the nearest latents: 10,000
@@ -135,14 +135,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      against CPU;
  13. SSGAN and InfoMax-GAN through the Dia-GAN path, --simultaneous_g and
      --bf16, at full width (ngf 256, ndf 128, nrkhs 1024; batch 64, n_dis 5)
-     on the earlier phases' data: per model cli.train_mimicry_phase1 for 20
-     steps with 50k sweeps at 10, 15 and 20, cli.train_mimicry_phase2 to 28
+     on the earlier phases' data: per model cli.train_mimicry_phase1 for 12
+     steps with 50k sweeps at 5 and 10, cli.train_mimicry_phase2 to 16
      (ldr_conf_1.0_ratio_50, twin DRS D), load_eval_models and DRS at batch
-     256; SNGAN-32 phase 1 for 10 steps with --simultaneous_g, then with
-     --bf16; a Colored-MNIST phase 1 for 100 steps with --bf16; SSGAN-64 and
-     InfoMax-64 (ngf, ndf 1024) for 4 CelebA steps, no sweep; no port kernel
-     may launch; steps/s of each beside SNGAN's (and SNGAN's under concat_d
-     and fuse_g), sweep ms, DRS accepted/s, peak memory and profiles of one
+     256 (2048 samples); SNGAN-32 phase 1 for 6 steps with --simultaneous_g,
+     then with --bf16; a Colored-MNIST phase 1 for 100 steps with --bf16;
+     SSGAN-64 and InfoMax-64 (ngf, ndf 1024) for 4 CelebA steps, no sweep;
+     no port kernel may launch; steps/s of each beside SNGAN's (and SNGAN's
+     under concat_d and fuse_g), sweep ms, DRS accepted/s, peak memory and profiles of one
      SSGAN and one InfoMax step; 13b card against CPU with injected draws
      and the CPU float64 run's ReLU sides: one fused step each of SSGAN-32
      and InfoMax-32 (twin D), SSGAN-64 and InfoMax-64 at full width (batch
@@ -905,19 +905,23 @@ def check_atomics():
         check(not glob, f"{kernel} has global atomics: {glob}")
 
 
-ADJOINT_PATHS = ("adjoint zero", "adjoint cells", "adjoint fallback", "clamped images")
+WARP2_PATHS = ("gather tiled", "gather global", "adjoint zero", "adjoint cells",
+               "adjoint fallback", "clamped images")  # the two-phase pair's, from warp_paths
 
 
 def check_warp2(dev, rng):
     """The two-phase warp gather and its adjoint against the plain versions
     at each ADA bucket's S2 and win, on the geometries of check_warp, and at
-    the largest S2 less 2 (rows not a multiple of 4 floats: the adjoint's
-    scalar stores) on rot_scale and the ADA draws. The adjoint is the
-    interleaved adjoint's tile pass under another layout, so the paths each
-    call takes are counted from the same tile geometry and every one must
-    run; where no output is clamped and no tile falls back, two launches
-    must give the same bits, and those of the interleaved adjoint of the
-    interleaved cotangent, de-interleaved."""
+    the largest S2 less 2 (rows not a multiple of 4 floats: the gather's
+    4-byte copies and the adjoint's scalar stores) on rot_scale and the ADA
+    draws. Both are the interleaved pair's tile passes under another
+    layout, so the paths each call takes are counted from the same tile
+    geometry and every one must run (the gather's shared-memory and global
+    paths, zoom_out's boxes exceeding the budget); the gather must give the
+    plain version's bits on every case; where no output is clamped and no
+    tile falls back, two launches of the adjoint must give the same bits,
+    and those of the interleaved adjoint of the interleaved cotangent,
+    de-interleaved."""
     from diagan_tpu_torch.ops import (
         affine_gather2_plain,
         affine_gather_2phase,
@@ -951,6 +955,7 @@ def check_warp2(dev, rng):
             exact = exact and e == 0.0
             scale = max(b.abs().max().item() for b in want)
             check(e <= 1e-6 * scale, f"affine gather2 {name} s2={s2}: err {e}")
+            check(e == 0.0, f"affine gather2 {name} s2={s2}: not bit-exact (err {e})")
             tols, mags = adjoint_tol(name, want_dv, affine_scatter2_plain, g, coef, s2)
             for got, w, tol, m in zip(dv, want_dv, tols, mags):
                 diff = (got - w).abs()
@@ -967,7 +972,7 @@ def check_warp2(dev, rng):
                 check(all(torch.equal(a, b) for a, b in zip(affine_scatter2(g, coef, s2), dv)),
                       f"affine scatter2 {name} s2={s2}: two launches differ")
                 same += 1
-            for k in ADJOINT_PATHS:
+            for k in WARP2_PATHS:
                 paths.setdefault(k, {}).setdefault(name, 0)
                 paths[k][name] += used[k]
             del dv
@@ -975,7 +980,8 @@ def check_warp2(dev, rng):
     print(f"two-phase affine warp: S2 {[s2 for _, s2, _ in runs]}, win {win}, "
           f"{len(WARP_CASES)} geometries + ADA draws at p=1 (S2 {runs[-1][1]}: rot_scale and "
           f"the draws): gather2 max abs err {err_g:.3e} "
-          f"({'bit-exact' if exact else 'not bit-exact'}; tol 1e-6 x max|out|), adjoint "
+          f"({'bit-exact' if exact else 'not bit-exact'} on every case; tol 1e-6 x max|out| "
+          f"and bit-exact), adjoint "
           f"{err_s:.3e} (adjoint_tol), at most {ulps:.2f} x 2^-24 of the sum of |terms|; "
           f"on {same} cases with no clamped output and no fallback "
           f"tile the adjoint gives the same bits on two launches and equals the interleaved "
@@ -986,6 +992,7 @@ def check_warp2(dev, rng):
     check(same > 0, "check_warp2 held no case to the interleaved adjoint's bits")
     check(paths["clamped images"]["clipped"] > 0 and paths["adjoint fallback"]["zoom_in"] > 0,
           "clipped took no clamped-output pass or zoom_in no fallback")
+    check(paths["gather global"]["zoom_out"] > 0, "zoom_out took no global-memory gather tile")
     return err_g, err_s
 
 
@@ -1020,7 +1027,7 @@ def check_polyphase_resample(dev, rng):
 def rolled_copies(n, size, n_base, seed):
     """n procedural images (data/synthetic.py): n_base of them, then copies
     rolled by one more pixel each along the width, as write_celeba makes
-    CelebA's 202,599 of 2,048 (the procedural images cost ~0.5 ms each at
+    phase 10's CelebA of 2,048 (the procedural images cost ~0.5 ms each at
     32 px and ~19 ms at 256 px on the card's host)."""
     from diagan_tpu_torch.data.synthetic import synthetic_natural
 
@@ -1290,11 +1297,12 @@ def in_turns(fns):
 
 
 def against_warp(root):
-    """The warp adjoints and the interleaved gather of another checkout (its
+    """The four warp kernels of another checkout (its
     diagan_tpu_torch/csrc/affine_warp.cu, built here with the port's nvcc
     flags), for timing against this one on the same card: {"root", "gather",
-    "scatter", "scatter2"}, the last three with the arguments and outputs of
-    affine_gather, affine_scatter and affine_scatter2."""
+    "scatter", "gather2", "scatter2"}, the last four with the arguments and
+    outputs of affine_gather, affine_scatter, ops.ada_phase._gather2 (the
+    four quarter grids in one buffer) and affine_scatter2."""
     import ctypes
 
     from diagan_tpu_torch.ops import _build
@@ -1318,7 +1326,7 @@ def against_warp(root):
         return launch
 
     gather, scatter = bind("affine_warp_gather", 3), bind("affine_warp_scatter", 3)
-    scatter2 = bind("affine_warp2_scatter", 4)
+    gather2, scatter2 = bind("affine_warp2_gather", 4), bind("affine_warp2_scatter", 4)
 
     def gather_fn(x2, coef, win):
         n, c, s2, _ = x2.shape
@@ -1332,13 +1340,20 @@ def against_warp(root):
         scatter((g, coef, dx2), n, c, s2, win)
         return dx2
 
+    def gather2_fn(v0, v1, coef, win):
+        n, c, _, s2 = v0.shape
+        out = torch.empty((4, n, c, win // 2, win // 2), device=v0.device)
+        gather2((v0, v1, coef, out), n, c, s2, win)
+        return out
+
     def scatter2_fn(g, coef, s2):
         _, n, c, h2, _ = g.shape
         dv = torch.empty((2, n, c, s2 // 2, s2), device=g.device)
         scatter2((g, coef, dv[0], dv[1]), n, c, s2, 2 * h2)
         return dv[0], dv[1]
 
-    return {"root": root, "gather": gather_fn, "scatter": scatter_fn, "scatter2": scatter2_fn}
+    return {"root": root, "gather": gather_fn, "scatter": scatter_fn, "gather2": gather2_fn,
+            "scatter2": scatter2_fn}
 
 
 def against_fir(root, tag=""):
@@ -1707,7 +1722,8 @@ def time_warp2(dev, rng, smi, errs, against=None):
     time_warp times the interleaved pair: device time of CUDA-graph replays
     in turns, and eagerly. #8 in turns with the interleaved gather (#6) on
     the same draws and grid_sample; #9 in turns with grid_sample's backward
-    as one call, and with `against` (against_warp), that checkout's #9. The
+    as one call; with `against` (against_warp), that checkout's #8 and #9
+    too, #8 held to this one's bits. The
     library calls read and write the interleaved buffer on a grid whose rows
     are the four quarter grids one after another (the interleave is built
     once and not timed)."""
@@ -1764,7 +1780,11 @@ def time_warp2(dev, rng, smi, errs, against=None):
     scatters = {"affine_warp2_scatter": lambda: affine_scatter2(gq, coef, s2),
                 "grid_sample backward": lib_scatter}
     if against:
-        root, a_scatter2 = against["root"], against["scatter2"]
+        root, a_gather2, a_scatter2 = against["root"], against["gather2"], against["scatter2"]
+        check(torch.equal(a_gather2(v0, v1, coef, win), out), f"{root}: two-phase gather differs")
+        print(f"{root}'s two-phase gather on the timed draws ({warp_paths(coef, win, s2)}): the "
+              f"same bits")
+        gathers = {f"{root} gather2": lambda: a_gather2(v0, v1, coef, win), **gathers}
         diffs = [(a - b).abs() for a, b in zip(a_scatter2(gq, coef, s2), dv)]
         check(all(bool((d <= 2e-5 + 1e-4 * b.abs()).all()) for d, b in zip(diffs, dv)),
               f"{root}: two-phase adjoint differs")
@@ -1824,7 +1844,7 @@ def time_training(tr, smi):
     """ms per training step (host clock around synchronised steps) for the
     three kinds of step; the plain step in the resample's three settings;
     then a profile of one ADA-live plain step in each form."""
-    def step_ms(step, reps=3):
+    def step_ms(step, reps=2):
         tr.train_step(step)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2005,7 +2025,7 @@ def sngan_path(dev, smi, work):
           f"{drs.proposed} proposed (acceptance {acc:.4f}) in {t_drs:.2f} s = "
           f"{4096 / t_drs:.2f} accepted/s; no port kernel launched [{smi}]")
 
-    p1_sps, p2_sps = steps_per_s(tr1, 30, dev), steps_per_s(tr2, 40, dev)
+    p1_sps, p2_sps = steps_per_s(tr1, 30, dev, 5), steps_per_s(tr2, 40, dev, 5)
     sweep = [0.0, 0.0]
     for i in range(2):
         torch.cuda.synchronize()
@@ -2014,7 +2034,7 @@ def sngan_path(dev, smi, work):
         torch.cuda.synchronize()
         sweep[i] = (time.perf_counter() - t0) * 1e3
     print(f"SNGAN-32 batch {SNGAN_BS} n_dis {SNGAN_NDIS} fp32: phase 1 {p1_sps:.2f} steps/s, "
-          f"phase 2 (with the twin D) {p2_sps:.2f} steps/s (host clock, 10 synchronised steps); "
+          f"phase 2 (with the twin D) {p2_sps:.2f} steps/s (host clock, 5 synchronised steps); "
           f"logit sweep of {SNGAN_N} at batch 256: {sweep[0]:.2f} / {sweep[1]:.2f} ms; peak "
           f"device memory of the training phases {(peak - held) / 2**30:.2f} GiB above the "
           f"{held / 2**30:.2f} GiB that earlier phases still held [{smi}]")
@@ -2106,7 +2126,8 @@ EVAL_STEP, EVAL_P1_STEP, EVAL_SCORE = 40, 30, "ldr_conf_1.0_ratio_50"  # phase 8
 # phase 9b's sample counts: the eval CLIs' are at most EVAL_N (a depth cut of
 # the CLIs' FID and IS counts of 50,000 and PR's 10,000, to keep the script
 # inside its limit)
-EVAL_N = 3000
+EVAL_N = 2000
+EVAL_SG2_WARMUP = 10  # 9c's DRS warm-up batches of 32 (DRS's default 50, a depth cut)
 # the JSONs of phase 9b: cli.eval_gan_drs's counts (FID, IS, PR), KID at
 # EVAL_N, and cli.eval_gan_with_index's FID of the 100 highest- and
 # lowest-scored reals against EVAL_N fakes
@@ -2216,12 +2237,14 @@ def eval_path(dev, smi, work):
     cli.eval_gan_with_index against the phase-1 logits (--p1_step 30); no
     port kernel may launch.
     9c: evaluate_checkpoint("fid") of phase 6's StyleGAN2-256 phase-2
-    checkpoint with DRS against its 512 training images (512 real, 256 fake
-    samples of 2048-d features: a singular covariance, the eps-jitter sqrtm),
+    checkpoint with DRS (EVAL_SG2_WARMUP warm-up batches) against its 512
+    training images (512 real, 256 fake samples of 2048-d features: a
+    singular covariance, the eps-jitter sqrtm),
     which launches kernel A and the fused bias-LeakyReLU. Returns 9c's
     (launches, kernel A launches by instance)."""
     from diagan_tpu_torch.cli import eval_gan, eval_gan_drs, eval_gan_with_index
     from diagan_tpu_torch.data.predefined import get_predefined_dataset
+    from diagan_tpu_torch.eval.drs import DRS
     from diagan_tpu_torch.eval.evaluate import evaluate_checkpoint
     from diagan_tpu_torch.eval.inception import InceptionFeaturizer
     from diagan_tpu_torch.models.registry import get_gan_model
@@ -2275,7 +2298,8 @@ def eval_path(dev, smi, work):
     real = np.load(train / "data" / f"ffhq_{SIZE}.npy")
     _build.reset_launches()
     t0 = time.perf_counter()
-    with PartTimer() as timer:
+    with PartTimer() as timer, mock.patch.object(DRS, "__init__", functools.partialmethod(
+            DRS.__init__, warmup_batches=EVAL_SG2_WARMUP)):
         res = evaluate_checkpoint(
             "fid", get_gan_model("ffhq", drs=True, device=dev), train / "p2", 12,
             real_images=real, num_real_samples=512, num_fake_samples=256, use_drs=True,
@@ -2326,12 +2350,12 @@ def time_inception(dev, smi):
           f"128, the copies in): {dt:.2f} s = {len(host) / dt:.2f} images/s [{smi}]")
 
 
-CELEBA_N = 202599  # CelebA's image count
+CELEBA_N = 25000  # CelebA's 202,599 images, cut (a depth cut: sweeps and writes ~8x shorter)
 CELEBA_CLF_N = 20000  # the attribute classifier's images (a depth cut)
 CELEBA_ATTR, CELEBA_SCORE = "Bald", "ldr_conf_1.0_ratio_50"
 # phase 1: 12 steps, sweeps at 5 and 10 (phase 2 scores the window before
 # --p1_step 12); phase 2 to step 16; evaluation counts
-CELEBA_P1, CELEBA_P2, CELEBA_SAMPLES = 12, 16, 2048
+CELEBA_P1, CELEBA_P2, CELEBA_SAMPLES = 12, 16, 1024
 
 
 def write_celeba(root, n, n_base=2048, seed=21):
@@ -2473,13 +2497,14 @@ def timed(owner, attr, log):
 def celeba_path(dev, smi, work):
     """10. The CelebA-64 Dia-GAN path and its attribute study at full width
     (SNGAN-64 ngf 1024, ndf 1024, nz 128, batch 64, n_dis 5, hinge;
-    AttrClassifier at 64 px) through the CLIs, on 202,599 procedural images
+    AttrClassifier at 64 px) through the CLIs, on CELEBA_N procedural images
     in CelebA's layout: phase 1 for 12 steps with sweeps of the whole set at
     5 and 10, phase 2 to step 16 (ldr_conf_1.0_ratio_50, the twin DRS D),
     the disc-score means of Bald, the attribute classifier for 1 epoch on
-    the first 20,000 images, count_attr with DRS at batch 256 on 2048
-    samples, and the DRS evaluation's partial recall and attribute-sliced
-    FID at 2048 fakes and at most 2048 reals a subset. No port kernel may
+    the first 20,000 images, count_attr with DRS at batch 256 on
+    CELEBA_SAMPLES samples, and the DRS evaluation's partial recall and
+    attribute-sliced FID at CELEBA_SAMPLES fakes and at most CELEBA_SAMPLES
+    reals a subset. No port kernel may
     launch. Steps/s, sweep seconds, DRS accepted/s and acceptance,
     classifier images/s, each CLI's wall time and peak device memory."""
     from diagan_tpu_torch.cli import (
@@ -2544,9 +2569,10 @@ def celeba_path(dev, smi, work):
     print(f"train_mimicry_phase2 -d celeba ({CELEBA_P2 - CELEBA_P1} steps, {CELEBA_SCORE}, twin "
           f"DRS D): {walls['train_mimicry_phase2']:.2f} s, metrics "
           f"{finite_metrics(tr2, ('errD', 'errG', 'errD_drs'))}; no port kernel launched")
-    p1_sps, p2_sps = steps_per_s(tr1, CELEBA_P2 + 1, dev, 5), steps_per_s(tr2, CELEBA_P2 + 1, dev, 5)
+    p1_sps = steps_per_s(tr1, CELEBA_P2 + 1, dev, 3)
+    p2_sps = steps_per_s(tr2, CELEBA_P2 + 1, dev, 3)
     print(f"SNGAN-64 batch 64 n_dis 5 fp32: phase 1 {p1_sps:.3f} steps/s, phase 2 (with the twin "
-          f"D) {p2_sps:.3f} steps/s (host clock, 5 synchronised steps); one logit sweep of "
+          f"D) {p2_sps:.3f} steps/s (host clock, 3 synchronised steps); one logit sweep of "
           f"{CELEBA_N} at batch 256: {sweeps[0][1]:.2f} / {sweeps[1][1]:.2f} s [{smi}]")
     del tr1, tr2
 
@@ -2773,11 +2799,11 @@ def mnist_path(dev, smi, work):
         n = len(args[1]) // 128 * 128
         print(f"{what} bias probe (SimpleConvNet, 1 epoch, {n} images at batch 128): "
               f"{t:.3f} s = {n / t:.2f} images/s [{smi}]")
-    rates = {what: steps_per_s(tr, end + 1, dev, 20) for what, tr, end in (
+    rates = {what: steps_per_s(tr, end + 1, dev, 10) for what, tr, end in (
         ("colour phase 1", c1, MNIST_P1), ("colour phase 2 (twin D)", c2, MNIST_P2),
         ("colour GOLD phase 2", c3, MNIST_P2), ("fmnist phase 2 --gold (twin D)", f2, MNIST_P2),
         ("PacGAN phase 1", pac, MNIST_PAC), ("25gaussian (n_dis 5)", toy, TOY_STEPS))}
-    print(f"steps/s (host clock, 20 synchronised steps): "
+    print(f"steps/s (host clock, 10 synchronised steps): "
           f"{({k: round(v, 2) for k, v in rates.items()})}; peak device memory of phase 11 "
           f"{(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.2f} GiB that earlier "
           f"phases still held [{smi}]")
@@ -2960,7 +2986,7 @@ def dcgan_step_card_vs_cpu(dev, smi):
 # depth cuts: the scripts' 50 CAE epochs, 20,000 Inclusive steps and 10 latents
 # per real image in a refresh
 CAE_EPOCHS, INCL_STEPS, INCL_LATENT_FACTOR = 2, 4, 1
-CAE_GEN = 50000  # the CAE scripts' generated images (generate_dataset's count)
+CAE_GEN = 20000  # generated images a CAE run (the scripts' 50,000, cut)
 
 
 def cae_inclusive_path(dev, smi, work):
@@ -2969,15 +2995,16 @@ def cae_inclusive_path(dev, smi, work):
     scripts' widths and counts: colour phase 1 resumed with its own CLI to
     MNIST_P2 (the phase-2 run's last step, so both runs have a G there);
     cli.train_cae on the colour baseline (plain sampler) and on the phase-2
-    run (DRS at batch 256 through netD_drs), each on the scripts' 50,000
-    generated images and the 10,000 real ones; cli.eval_ae_score --use_loss
+    run (DRS at batch 256 through netD_drs), each on CAE_GEN generated
+    images and the 10,000 real ones; cli.eval_ae_score --use_loss
     (its CSV); cli.train_cae -d mnist_fmnist on phase 11's FMNIST run (CAE32,
     nc 1); cli.train_mimicry_inclusive at full DCGAN and full Inception width
     on the 10,000 Colored-MNIST images for INCL_STEPS steps (its construction
     registers the real features and refreshes the nearest latents:
     INCL_LATENT_FACTOR x 10,000 latents through G and the Inception at 299);
-    cli.train_cae_inclusive on its checkpoint. Cuts (depth only): CAE_EPOCHS
-    CAE epochs of the scripts' 50, INCL_STEPS Inclusive steps of 20,000 (the
+    cli.train_cae_inclusive on its checkpoint. Cuts (depth only): CAE_GEN
+    generated images of the scripts' 50,000, CAE_EPOCHS CAE epochs of the
+    scripts' 50, INCL_STEPS Inclusive steps of 20,000 (the
     refresh every 3120 steps is not reached after construction), a refresh
     of 10,000 latents where the script draws 100,000. No port kernel may launch. Readings:
     generated images/s, CAE train images/s, ms per RE sweep of 10,000,
@@ -3031,7 +3058,9 @@ def cae_inclusive_path(dev, smi, work):
     cwd = os.getcwd()
     os.chdir(work)  # eval_ae_score writes its CSV to the cwd
     try:
-        with timed(train_cae, "generate_dataset", gens), timed(train_cae, "train_cae", fits), \
+        with mock.patch.object(train_cae, "generate_dataset", functools.partial(
+                    cae_protocol.generate_dataset, num_images=CAE_GEN)), \
+                timed(train_cae, "generate_dataset", gens), timed(train_cae, "train_cae", fits), \
                 timed(cae_protocol, "reconstruction_errors", sweeps), \
                 timed(DRS, "generate_images", draws), \
                 timed(InceptionFeaturizer, "features", feats), \
@@ -3202,8 +3231,9 @@ def cae_inclusive_card_vs_cpu(dev, smi):
 
 
 
-SS_P1, SS_P2, SS_FLAG_STEPS, SS_MNIST_STEPS, SS_CELEBA_STEPS = 20, 28, 10, 100, 4  # depth cuts
-SS_RATE_STEPS = 5  # synchronised steps a 32 px steps/s reading takes (a depth cut)
+SS_P1, SS_P2, SS_FLAG_STEPS, SS_MNIST_STEPS, SS_CELEBA_STEPS = 12, 16, 6, 100, 4  # depth cuts
+SS_RATE_STEPS = 3  # synchronised steps a steps/s reading takes (a depth cut)
+SS_DRS_N = 2048  # DRS samples a model (a depth cut)
 
 
 def sngan_twin_step(tr, dataset, dev, **fusions):
@@ -3228,10 +3258,10 @@ def ssgan_infomax_path(dev, smi, work):
     1024), batch 64, n_dis 5, on the earlier phases' data (`work` holds
     phase 8's sngan/cifar10, phase 10's celeba/celeba and phase 11's
     mnist/dataset/colour_mnist). Per model, cli.train_mimicry_phase1 for
-    SS_P1 steps with 50k sweeps at 10 and 20, cli.train_mimicry_phase2 to
+    SS_P1 steps with 50k sweeps at 5 and 10, cli.train_mimicry_phase2 to
     SS_P2 (ldr_conf_1.0_ratio_50, the twin D), load_eval_models and DRS at
-    batch 256 from the phase-2 checkpoint; SNGAN-32 phase 1 with
-    --simultaneous_g, then with --bf16; a Colored-MNIST phase 1 with --bf16;
+    batch 256 (SS_DRS_N samples) from the phase-2 checkpoint; SNGAN-32
+    phase 1 with --simultaneous_g, then with --bf16; a Colored-MNIST phase 1 with --bf16;
     SSGAN-64 and InfoMax-64 phase 1 on CelebA with the sweep window past the
     run's end. No port kernel may launch. Steps/s of each beside SNGAN's
     (and SNGAN's under concat_d and fuse_g) in this process, ms per 50k
@@ -3273,11 +3303,11 @@ def ssgan_infomax_path(dev, smi, work):
         args = cifar_args + ["--model", model]
         tr1 = drive(f"{model} phase 1", lambda: train_mimicry_phase1.main(args + [
             "--exp_name", f"{model}_p1", "--no_schedule_override", "--num_steps", str(SS_P1),
-            "--logit_save_steps", "5", "--save_logit_after", "10",
-            "--stop_save_logit_after", str(SS_P1)]))
-        check_logits(out / f"{model}_p1" / "logits_netD_eval.pkl", [10, 15, 20], SNGAN_N)
+            "--logit_save_steps", "5", "--save_logit_after", "5",
+            "--stop_save_logit_after", "10"]))
+        check_logits(out / f"{model}_p1" / "logits_netD_eval.pkl", [5, 10], SNGAN_N)
         aux = ("errD", "errG", "D(x)", "D(G(z))")
-        print(f"train_mimicry_phase1 --model {model} ({SS_P1} steps, 3 sweeps of {SNGAN_N}): "
+        print(f"train_mimicry_phase1 --model {model} ({SS_P1} steps, 2 sweeps of {SNGAN_N}): "
               f"{walls[f'{model} phase 1']:.2f} s, metrics {finite_metrics(tr1, aux)}; no port "
               f"kernel launched")
         tr2 = drive(f"{model} phase 2", lambda: train_mimicry_phase2.main(args + [
@@ -3297,24 +3327,22 @@ def ssgan_infomax_path(dev, smi, work):
                       generator=torch.Generator(dev).manual_seed(SEED + 3))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            images = drs.generate_images(4096)
+            images = drs.generate_images(SS_DRS_N)
             return drs, images, time.perf_counter() - t0
         drs, accepted, t_drs = drive(f"{model} DRS", drs_run)
         acc = drs.accepted / drs.proposed
-        check(accepted.shape == (4096, 32, 32, 3) and np.isfinite(accepted).all()
+        check(accepted.shape == (SS_DRS_N, 32, 32, 3) and np.isfinite(accepted).all()
               and 0.0 < acc < 1.0, f"{model} DRS output, acceptance {acc}")
         sps[f"{model} phase 1"] = steps_per_s(tr1, SS_P2 + 1, dev, SS_RATE_STEPS)
         sps[f"{model} phase 2"] = steps_per_s(tr2, SS_P2 + 1, dev, SS_RATE_STEPS)
-        sweep = []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tr1.recorder.sweep(tr1.d.module, tr1.source)
-            torch.cuda.synchronize()
-            sweep.append((time.perf_counter() - t0) * 1e3)
-        print(f"{model}: DRS batch 256 4096 accepted of {drs.proposed} (acceptance {acc:.4f}) "
-              f"in {t_drs:.2f} s = {4096 / t_drs:.2f} accepted/s; logit sweep of {SNGAN_N} at "
-              f"batch 256 {sweep[0]:.2f} / {sweep[1]:.2f} ms; no port kernel launched [{smi}]")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr1.recorder.sweep(tr1.d.module, tr1.source)
+        torch.cuda.synchronize()
+        sweep = (time.perf_counter() - t0) * 1e3
+        print(f"{model}: DRS batch 256 {SS_DRS_N} accepted of {drs.proposed} (acceptance "
+              f"{acc:.4f}) in {t_drs:.2f} s = {SS_DRS_N / t_drs:.2f} accepted/s; logit sweep of "
+              f"{SNGAN_N} at batch 256 {sweep:.2f} ms; no port kernel launched [{smi}]")
         trainers[model] = tr1
         del tr2, drs
 
@@ -3363,13 +3391,14 @@ def ssgan_infomax_path(dev, smi, work):
               f"sweep): {walls[f'celeba {model}']:.2f} s, metrics "
               f"{finite_metrics(tr, ('errD', 'errG', 'D(x)', 'D(G(z))'))}; no port kernel "
               f"launched")
-        sps64[model] = steps_per_s(tr, SS_CELEBA_STEPS, dev, n=5)
+        sps64[model] = steps_per_s(tr, SS_CELEBA_STEPS, dev, SS_RATE_STEPS)
         if model == "ssgan":
-            sps64["sngan"] = steps_per_s(None, SS_CELEBA_STEPS, dev, n=5,
+            sps64["sngan"] = steps_per_s(None, SS_CELEBA_STEPS, dev, SS_RATE_STEPS,
                                          fused=sngan_twin_step(tr, "celeba", dev))
         del tr
     print("SNGAN-family steps/s at 64 px (ngf, ndf 1024), batch 64, n_dis 5, fp32 (host clock, "
-          f"5 synchronised steps): {({k: round(v, 3) for k, v in sps64.items()})} [{smi}]")
+          f"{SS_RATE_STEPS} synchronised steps): {({k: round(v, 3) for k, v in sps64.items()})} "
+          f"[{smi}]")
     peak = torch.cuda.max_memory_allocated()
     print(f"phase 13 wall s by run {({k: round(v, 2) for k, v in walls.items()})}; no port "
           f"kernel launched in any; peak device memory {(peak - held) / 2**30:.2f} GiB above the "
@@ -3862,7 +3891,7 @@ def flags_against_plain(dev, smi, work, tr1):
           f"{runs['plain'][1] / 2**30:.2f} GiB, remat {runs['remat'][1] / 2**30:.2f} GiB [{smi}]")
     del runs
 
-    def step_ms(tr, step, reps=3):
+    def step_ms(tr, step, reps=2):
         tr.train_step(step)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4355,7 +4384,7 @@ def weights_gate_path(dev, smi, work):
 
 
 def index_loader_path(dev, smi, work, fid):
-    """15d. data/index_loader.py on phase 10's CelebA (202,599 images,
+    """15d. data/index_loader.py on phase 10's CelebA (CELEBA_N images,
     celeba_64.npy): get_celeba_images_with_index and get_index_images on
     2,048 indices against the plain CPU gather (bytes), and the featurizer
     on the card on both (features equal)."""
@@ -5031,11 +5060,11 @@ def main(argv=None):
                         help="stop after phase 3d (build, check and time the kernels, "
                              "check the polyphase resample)")
     parser.add_argument("--against", metavar="ROOT", action="append",
-                        help="also time kernel A, the warp adjoints and the interleaved gather "
-                             "of the checkout at ROOT (e.g. the parent commit's tree) in turns "
-                             "with this one, and check that kernel A's fp32 and bf16 "
-                             "instances give its bits; kernel A takes several ROOTs (the warp "
-                             "kernels the first)")
+                        help="also time kernel A and the four warp kernels of the checkout at "
+                             "ROOT (e.g. the parent commit's tree) in turns with this one, and "
+                             "check that kernel A's fp32 and bf16 instances and both gathers "
+                             "give its bits; kernel A takes several ROOTs (the warp kernels the "
+                             "first)")
     parser.add_argument("--dp-worker", nargs=2, metavar=("DIR", "RANK"),
                         help="run one of phase 16b's two ranks (the script starts them)")
     args = parser.parse_args(argv)

@@ -25,9 +25,10 @@
 //
 // Bound: bytes. The gathers do ~20 flops per output per channel against 4
 // loads and 1 store: the least they move is each touched source pixel read
-// once and the output written once (0.0326 ms at ADA's largest pad bucket,
-// batch 16, ADA draws at p = 1, on an NVIDIA H100 80GB HBM3 at 700 W and
-// 3.35 TB/s). The adjoints must read g once and write all of dx2 (or both
+// once and the output written once (0.0326 ms for either gather at ADA's
+// largest pad bucket, batch 16, ADA draws at p = 1: the buffer (16, 3, 1304,
+// 1304) or its planes 2 x (16, 3, 652, 1304), win 524; on an NVIDIA H100
+// 80GB HBM3 at 700 W and 3.35 TB/s). The adjoints must read g once and write all of dx2 (or both
 // planes) once (0.1132 ms there).
 //
 // All kernels share tap(), whose coordinates use __fmul_rn / __fadd_rn in
@@ -36,11 +37,11 @@
 // the clamp, floor and weights equal the plain versions' bit for bit, and
 // with mix()'s blend order the gathers are exact against them.
 //
-// The interleaved pair is tiled on one fact: under an affine map q is
-// monotone in i and in j (rounded or not), and so are the clamp and the
-// floor, so the taps of a rectangle of outputs lie in the box spanned by its
-// four corners' taps, and the outputs that reach a rectangle of source
-// pixels lie in the preimage of that rectangle.
+// Both pairs are tiled on one fact: under an affine map q is monotone in i
+// and in j (rounded or not), and so are the clamp and the floor, so the taps
+// of a rectangle of outputs lie in the box spanned by its four corners'
+// taps, and the outputs that reach a rectangle of source pixels lie in the
+// preimage of that rectangle. The interleaved pair:
 //  - gather_kernel: a block takes a GATHER_TH x GATHER_TW tile of outputs (a
 //    lane per column, GATHER_ROWS rows per thread). From the corners' taps it
 //    takes the tile's source box and copies the box of each channel plane
@@ -75,16 +76,23 @@
 // ops/warp.py mirrors this tile geometry in plain torch (_gather_tile_boxes,
 // _scatter_tile_candidates) so that the CPU tests can check it.
 //
-// The two-phase pair. gather2_kernel: one thread per output pixel of one
-// image walks the C channel planes, its threads numbered by output row and
-// column, so a warp's 32 lanes take 32 neighbouring output columns; within
-// each run of 32 columns the lanes are ordered parity first (lanes 0-15 the
-// even columns, 16-31 the odd ones), so each half-warp stores 16
-// neighbouring words of one quarter grid. Its adjoint is the interleaved
-// adjoint's tile pass and clamped pass with two address maps changed,
-// through a layout policy (Interleaved, TwoPhase below): the cotangent of
-// output (i, j) is read from quarter grid (i & 1) * 2 + (j & 1) at
-// (i >> 1, j >> 1), and buffer row y is written to phase_row(y). The tiles,
+// The two-phase pair. gather2_kernel is gather_kernel's tile pass under
+// another layout policy (InterleavedGather, TwoPhaseGather below): the same
+// tiles, corner taps, source boxes, budget and blend, with two address maps
+// changed. Box row r is staged from buffer row y = r0 + r, which is row
+// y >> 1 of plane y & 1 (phase_row), 16 bytes a copy when S2 is a multiple
+// of 4 and both planes are 16-byte aligned; output (i, j) is stored in
+// quarter grid (i & 1) * 2 + (j & 1) at (i >> 1, j >> 1). WARPS is even, so
+// all rows of a thread have its warp's parity, and a warp's row store is 16
+// neighbouring words of quarter grid b = 0 from the even lanes and 16 of
+// b = 1 from the odd ones. It replaces _gather2_pallas, which built the four
+// quarter grids from hat-weight matmuls over the two planes' DMA windows.
+// ops/ada_phase.py mirrors the staging map in plain torch (_phase_box_rows).
+// The adjoint is the interleaved adjoint's tile pass and clamped pass with
+// two address maps changed, through a layout policy (Interleaved, TwoPhase
+// below): the cotangent of output (i, j) is read from quarter grid
+// (i & 1) * 2 + (j & 1) at (i >> 1, j >> 1), and buffer row y is written to
+// phase_row(y). The tiles,
 // candidates, cells and sum order are the same, so scatter2_kernel owns its
 // tiles of both planes with no memset and no global atomic, and
 // scatter2_clamped_kernel adds the clamped outputs. Where no output is
@@ -120,6 +128,8 @@ constexpr int SCATTER_BLOCKS = 2;           // resident tile-pass blocks per SM
 constexpr int CLAMP_BLOCKS = 64;            // blocks per image, clamped-output pass
 // a dx2 tile's rows start at an even row, so its row dy has the parity of dy
 static_assert(SCATTER_TH % 2 == 0 && SCATTER_TH % WARPS == 0, "scatter tile rows");
+// a gather thread's rows first + WARPS * r share first's parity (two-phase stores)
+static_assert(WARPS % 2 == 0, "gather rows keep their parity");
 
 struct Q {
   float y, x;  // the unclamped source point
@@ -244,19 +254,73 @@ struct Box {
   int r0, c0, h, w;
 };
 
-// Copy box b of `src` (row stride ld) into `dst` with cp.async: 16-byte
-// copies when vec (c0, w and ld multiples of 4, src and dst 16-byte
-// aligned), else 4-byte ones; consecutive threads take consecutive words.
-__device__ __forceinline__ void stage(float* dst, const float* src, int ld, const Box& b,
+// Row y of the S2 x S2 buffer in the two-phase layout: row y >> 1 of plane
+// y & 1, planes (S2 / 2) x S2. `base` is the (n, c) offset of both planes.
+template <typename T>
+__device__ __forceinline__ T* phase_row(T* v0, T* v1, long long base, int y, int S2) {
+  return (y & 1 ? v1 : v0) + base + (long long)(y >> 1) * S2;
+}
+
+// The gathers' two layouts. A layout says where row y of the S2 x S2 buffer
+// lies and where output (i, j) is stored; gather_tiles below takes one as a
+// template argument and depends on the layout through it alone:
+//  - src(n, c, y): row y of channel c of image n's buffer;
+//  - dst(n, i, j): output (i, j) of image n, channel 0; cstep(): the step to
+//    the next channel; rstep(): the step from output row i to row i + WARPS
+//    of the same column.
+// InterleavedGather: x2 (N, C, S2, S2), out (N, C, win, win).
+struct InterleavedGather {
+  const float* __restrict__ x2;
+  float* __restrict__ out;
+  int C, S2, win;
+
+  __device__ __forceinline__ const float* src(int n, int c, int y) const {
+    return x2 + ((long long)n * C + c) * S2 * S2 + (long long)y * S2;
+  }
+  __device__ __forceinline__ long long cstep() const { return (long long)win * win; }
+  __device__ __forceinline__ long long rstep() const { return (long long)WARPS * win; }
+  __device__ __forceinline__ float* dst(int n, int i, int j) const {
+    return out + (long long)n * C * cstep() + (long long)i * win + j;
+  }
+};
+
+// TwoPhaseGather: v0, v1 (N, C, S2/2, S2), buffer row y at phase_row(y); out
+// (4, N, C, win/2, win/2), output (i, j) in quarter grid (i & 1) * 2 + (j & 1)
+// at (i >> 1, j >> 1). Rows i and i + WARPS have one parity, so rstep stays
+// in one quarter grid.
+struct TwoPhaseGather {
+  const float* __restrict__ v0;
+  const float* __restrict__ v1;
+  float* __restrict__ out;
+  int N, C, S2, win;
+
+  __device__ __forceinline__ const float* src(int n, int c, int y) const {
+    return phase_row(v0, v1, ((long long)n * C + c) * (S2 / 2) * S2, y, S2);
+  }
+  __device__ __forceinline__ int h2() const { return win >> 1; }
+  __device__ __forceinline__ long long cstep() const { return (long long)h2() * h2(); }
+  __device__ __forceinline__ long long rstep() const { return (long long)(WARPS / 2) * h2(); }
+  __device__ __forceinline__ float* dst(int n, int i, int j) const {
+    return out + ((long long)((i & 1) * 2 + (j & 1)) * N + n) * C * cstep() +
+           (long long)(i >> 1) * h2() + (j >> 1);
+  }
+};
+
+// Copy box b of channel c of image n (rows from layout L) into `dst` with
+// cp.async: 16-byte copies when vec (c0, w and S2 multiples of 4, the
+// buffer 16-byte aligned), else 4-byte ones; consecutive threads take
+// consecutive words.
+template <typename L>
+__device__ __forceinline__ void stage(float* dst, const L& lay, int n, int c, const Box& b,
                                       bool vec) {
-  const int step = vec ? 4 : 1, wq = b.w / step, n = b.h * wq;
-  for (int k = threadIdx.x; k < n; k += THREADS) {
-    const int r = k / wq, c = (k - r * wq) * step;
-    const float* s = src + (long long)(b.r0 + r) * ld + b.c0 + c;
+  const int step = vec ? 4 : 1, wq = b.w / step, words = b.h * wq;
+  for (int k = threadIdx.x; k < words; k += THREADS) {
+    const int r = k / wq, x = (k - r * wq) * step;
+    const float* s = lay.src(n, c, b.r0 + r) + b.c0 + x;
     if (vec) {
-      cp_async16(dst + r * b.w + c, s);
+      cp_async16(dst + r * b.w + x, s);
     } else {
-      cp_async4(dst + r * b.w + c, s);
+      cp_async4(dst + r * b.w + x, s);
     }
   }
 }
@@ -277,33 +341,31 @@ __device__ __forceinline__ Box gather_box(const float* cf, int i0, int j0, int S
   return {y0, x0, y1 - y0 + 1, x1 - x0 + 1};
 }
 
-// grid: (ceil(win / GATHER_TW), ceil(win / GATHER_TH), N); x2 (N, C, S2, S2),
-// out (N, C, win, win); vec: 16-byte copies of x2's rows.
-__global__ void __launch_bounds__(THREADS, GATHER_BLOCKS)
-gather_kernel(const float* __restrict__ x2, const float* __restrict__ coef,
-              float* __restrict__ out, int C, int S2, int win, bool vec) {
+// The gather tile pass of layout L: the block takes the tile at (i0, j0) =
+// (blockIdx.y * GATHER_TH, blockIdx.x * GATHER_TW) of image blockIdx.z; vec:
+// 16-byte copies of the buffer's rows.
+template <typename L>
+__device__ __forceinline__ void gather_tiles(const L& lay, const float* __restrict__ coef,
+                                             bool vec) {
   __shared__ __align__(16) float buf[2][GATHER_BUF];
   const int n = blockIdx.z, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int C = lay.C, S2 = lay.S2, win = lay.win;
   const int i0 = blockIdx.y * GATHER_TH, j0 = blockIdx.x * GATHER_TW, j = j0 + lane;
   float cf[6];
   load_coef(coef, n, cf);
-  const long long plane = (long long)S2 * S2, oplane = (long long)win * win;
-  const float* xn = x2 + (long long)n * C * plane;
-  // this thread's outputs: rows i0 + warp + WARPS * r of column j
-  float* on = out + (long long)n * C * oplane + (long long)(i0 + warp) * win + j;
-  const long long rstep = (long long)WARPS * win;
-  const int first = i0 + warp;  // rows first + WARPS * r that lie in the grid
+  // this thread's outputs: rows first + WARPS * r of column j
+  const int first = i0 + warp;
   const int rows = j < win && first < win ? min(GATHER_ROWS, (win - 1 - first) / WARPS + 1) : 0;
+  float* on = lay.dst(n, first, j);
+  const long long cstep = lay.cstep(), rstep = lay.rstep();
   const Box b = gather_box(cf, i0, j0, S2, win, vec);
-  if (b.h * b.w > GATHER_BUF) {  // the box does not fit: read x2 from global
+  if (b.h * b.w > GATHER_BUF) {  // the box does not fit: read the buffer from global
 #pragma unroll
     for (int r = 0; r < GATHER_ROWS; ++r) {
       if (r < rows) {
-        const Tap t = tap(cf, i0 + warp + WARPS * r, j, S2);
+        const Tap t = tap(cf, first + WARPS * r, j, S2);
         for (int c = 0; c < C; ++c) {
-          const float* xp = xn + c * plane;
-          on[c * oplane + r * rstep] =
-              blend(xp + (long long)t.y0 * S2, xp + (long long)t.y1 * S2, t);
+          on[c * cstep + r * rstep] = blend(lay.src(n, c, t.y0), lay.src(n, c, t.y1), t);
         }
       }
     }
@@ -315,7 +377,7 @@ gather_kernel(const float* __restrict__ x2, const float* __restrict__ coef,
   float fx[GATHER_ROWS], fy[GATHER_ROWS];
 #pragma unroll
   for (int r = 0; r < GATHER_ROWS; ++r) {
-    const Tap t = tap(cf, min(i0 + warp + WARPS * r, win - 1), min(j, win - 1), S2);
+    const Tap t = tap(cf, min(first + WARPS * r, win - 1), min(j, win - 1), S2);
     at[r] = (t.y0 - b.r0) * b.w + t.x0 - b.c0;
     right[r] = t.x1 - t.x0;
     down[r] = (t.y1 - t.y0) * b.w;
@@ -323,9 +385,9 @@ gather_kernel(const float* __restrict__ x2, const float* __restrict__ coef,
     fy[r] = t.wy1;
   }
   // channel c is staged in buf[c & 1]; one commit group per channel slot
-  stage(buf[0], xn, S2, b, vec);
+  stage(buf[0], lay, n, 0, b, vec);
   cp_async_commit();
-  if (C > 1) stage(buf[1], xn + plane, S2, b, vec);
+  if (C > 1) stage(buf[1], lay, n, 1, b, vec);
   cp_async_commit();
   for (int c = 0; c < C; ++c) {
     cp_async_wait<1>();  // channel c has landed (c + 1 may be in flight)
@@ -340,13 +402,30 @@ gather_kernel(const float* __restrict__ x2, const float* __restrict__ coef,
         t.wx0 = __fsub_rn(1.f, fx[r]);
         t.wy0 = __fsub_rn(1.f, fy[r]);
         const float* p = s + at[r];
-        on[c * oplane + r * rstep] = mix(p[0], p[right[r]], p[down[r]], p[down[r] + right[r]], t);
+        on[c * cstep + r * rstep] = mix(p[0], p[right[r]], p[down[r]], p[down[r] + right[r]], t);
       }
     }
     __syncthreads();  // every thread is done with buf[c & 1]
-    if (c + 2 < C) stage(buf[c & 1], xn + (c + 2) * plane, S2, b, vec);
+    if (c + 2 < C) stage(buf[c & 1], lay, n, c + 2, b, vec);
     cp_async_commit();
   }
+}
+
+// The interleaved gather: grid (ceil(win / GATHER_TW), ceil(win / GATHER_TH),
+// N); x2 (N, C, S2, S2), out (N, C, win, win).
+__global__ void __launch_bounds__(THREADS, GATHER_BLOCKS)
+gather_kernel(const float* __restrict__ x2, const float* __restrict__ coef,
+              float* __restrict__ out, int C, int S2, int win, bool vec) {
+  gather_tiles(InterleavedGather{x2, out, C, S2, win}, coef, vec);
+}
+
+// The two-phase gather: grid as gather_kernel; v0, v1 (N, C, S2/2, S2), out
+// (4, N, C, win/2, win/2), quarter grid a * 2 + b first.
+__global__ void __launch_bounds__(THREADS, GATHER_BLOCKS)
+gather2_kernel(const float* __restrict__ v0, const float* __restrict__ v1,
+               const float* __restrict__ coef, float* __restrict__ out, int N, int C, int S2,
+               int win, bool vec) {
+  gather_tiles(TwoPhaseGather{v0, v1, out, N, C, S2, win}, coef, vec);
 }
 
 // The geometry of one dx2 tile, rows [r0, r1] x columns [c0, c1]:
@@ -430,13 +509,6 @@ __device__ TileGeom tile_geom(const float* cf, int r0, int r1, int c0, int c1, i
   t.dj_lo = (float)(fmin(m10, 0.0) + fmin(m11, 0.0) - ej);
   t.dj_hi = (float)(fmax(m10, 0.0) + fmax(m11, 0.0) + ej);
   return t;
-}
-
-// Row y of the S2 x S2 buffer in the two-phase layout: row y >> 1 of plane
-// y & 1, planes (S2 / 2) x S2. `base` is the (n, c) offset of both planes.
-template <typename T>
-__device__ __forceinline__ T* phase_row(T* v0, T* v1, long long base, int y, int S2) {
-  return (y & 1 ? v1 : v0) + base + (long long)(y >> 1) * S2;
 }
 
 // The adjoints' two layouts. A layout says where the cotangent of output
@@ -835,32 +907,13 @@ scatter2_clamped_kernel(const float* __restrict__ g, const float* __restrict__ c
   scatter_clamped(TwoPhase{g, dv0, dv1, (int)gridDim.y, C, S2, win}, coef);
 }
 
-// grid: (ceil(win * win / THREADS), N), h2 = win / 2; v0, v1 (N, C, S2/2,
-// S2); out (4, N, C, h2, h2), quarter grid a * 2 + b first.
-__global__ void __launch_bounds__(THREADS)
-gather2_kernel(const float* __restrict__ v0, const float* __restrict__ v1,
-               const float* __restrict__ coef, float* __restrict__ out,
-               int N, int C, int S2, int win) {
-  const int h2 = win / 2, qplane = h2 * h2;
-  const int p = blockIdx.x * THREADS + threadIdx.x;
-  const int n = blockIdx.y;
-  if (p >= win * win) return;
-  // output row i; lane l of the run of `wc` columns from c0 takes parity
-  // b = (l >= wc / 2) and column j = 2 * ux + b (wc and win are even)
-  const int i = p / win, c0 = (p % win) & ~31, l = p % win - c0;
-  const int half = min(32, win - c0) >> 1, b = l >= half;
-  const int ux = (c0 >> 1) + l - b * half, uy = i >> 1;
-  const int q = (i & 1) * 2 + b, r = uy * h2 + ux;  // quarter grid q = a * 2 + b
-  const Tap t = tap(coef + 6 * n, i, 2 * ux + b, S2);
-  const long long vplane = (long long)(S2 / 2) * S2;
-  for (int c = 0; c < C; ++c) {
-    const long long base = ((long long)n * C + c) * vplane;
-    out[(((long long)q * N + n) * C + c) * qplane + r] =
-        blend(phase_row(v0, v1, base, t.y0, S2), phase_row(v0, v1, base, t.y1, S2), t);
-  }
-}
-
 bool aligned16(const void* p) { return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0; }
+
+// The gathers' grid: one block per GATHER_TH x GATHER_TW output tile.
+dim3 gather_grid(int N, int win) {
+  return dim3((unsigned)((win + GATHER_TW - 1) / GATHER_TW),
+              (unsigned)((win + GATHER_TH - 1) / GATHER_TH), (unsigned)N);
+}
 
 // The adjoints' tile-pass grid: one persistent block per tile, at most
 // SCATTER_BLOCKS per SM.
@@ -883,9 +936,7 @@ extern "C" int affine_warp_gather(const float* x2, const float* coef, float* out
                                   int N, int C, int S2, int win, void* stream) {
   if ((long long)N * C * win == 0) return (int)cudaGetLastError();
   if (N > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((win + GATHER_TW - 1) / GATHER_TW),
-                  (unsigned)((win + GATHER_TH - 1) / GATHER_TH), (unsigned)N);
-  gather_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  gather_kernel<<<gather_grid(N, win), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       x2, coef, out, C, S2, win, (S2 & 3) == 0 && aligned16(x2));
   return (int)cudaGetLastError();
 }
@@ -916,9 +967,8 @@ extern "C" int affine_warp2_gather(const float* v0, const float* v1, const float
   if ((S2 | win) & 1) return (int)cudaErrorInvalidValue;
   if ((long long)N * C * win == 0) return (int)cudaGetLastError();
   if (N > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(((long long)win * win + THREADS - 1) / THREADS), (unsigned)N);
-  gather2_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(v0, v1, coef, out, N,
-                                                                        C, S2, win);
+  gather2_kernel<<<gather_grid(N, win), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      v0, v1, coef, out, N, C, S2, win, (S2 & 3) == 0 && aligned16(v0) && aligned16(v1));
   return (int)cudaGetLastError();
 }
 

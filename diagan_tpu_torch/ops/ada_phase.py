@@ -22,11 +22,14 @@ for CPU tensors, and does nothing else: `affine_gather2_plain` (interleave
 the planes, `affine_gather_plain`, split by parity, as the JAX package's
 `_gather2_xla`) and `affine_scatter2_plain` (autograd through it).
 
-The adjoint is the interleaved adjoint's tile pass (ops/warp.py) with two
-address maps changed: it owns its tiles of the S2 x S2 buffer and writes
+Both kernels are the interleaved pair's tile passes (ops/warp.py) with two
+address maps changed. The gather stages each output tile's source box
+(`_gather_tile_boxes`) from the planes, box row by box row, and stores its
+outputs into the quarter grids; `_phase_box_rows` repeats its staging map in
+plain torch. The adjoint owns its tiles of the S2 x S2 buffer and writes
 every pixel of both planes once, with no memset and no global atomic
 outside its clamped-output pass. `_quarter_offsets` and `_plane_offsets`
-repeat those two maps in plain torch, and `_phase_tile_rows` the plane rows
+repeat its two maps in plain torch, and `_phase_tile_rows` the plane rows
 that each buffer tile writes, so that the CPU tests can check them.
 """
 from __future__ import annotations
@@ -104,6 +107,19 @@ def _phase_tile_rows(s2, tile=SCATTER_TILE):
     r0, r1 = _tile_starts(s2, tile[0])
     rows = [torch.stack([(r0 - phi + 1) // 2, (r1 - phi) // 2], -1) for phi in (0, 1)]
     return torch.stack(rows, 1)
+
+
+def _phase_box_rows(boxes):
+    """The two-phase gather's staging map: box row r of each source box of
+    `_gather_tile_boxes`, boxes (N, TI, TJ, 4) [y_lo, y_hi, x_lo, x_hi]
+    inclusive, is copied from buffer row y = y_lo + r, which is row y >> 1
+    of plane y & 1. Returns (plane, row), each (N, TI, TJ, H) int64 with H
+    the tallest box's height, -1 past each box's last row."""
+    height = boxes[..., 1] - boxes[..., 0] + 1
+    r = torch.arange(int(height.max()))
+    y = boxes[..., 0, None] + r
+    inside = r < height[..., None]
+    return torch.where(inside, y & 1, -1), torch.where(inside, y >> 1, -1)
 
 
 @functools.cache
