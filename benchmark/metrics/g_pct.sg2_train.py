@@ -1,0 +1,10 @@
+"""The device's time within the G step's span (`train.g`: G, D through the
+augmented fake, backward, Adam, the EMA), less that of the device-timed spans
+nested in it, as a share of the traced window (harness/program_trace.py)."""
+from benchmark.harness import program_trace
+
+LAYER, MOVES = "models", "sg2_train_img_per_s"
+
+
+def read(facts):
+    return program_trace.phase_pct(facts, ("train.g",))

@@ -1,0 +1,11 @@
+"""The device's time within the R1 steps' spans (`train.r1`: the penalty's
+double backward and Adam, both Ds, every 16th step), less that of the device-
+timed spans nested in it, as a share of the traced window
+(harness/program_trace.py)."""
+from benchmark.harness import program_trace
+
+LAYER, MOVES = "models", "sg2_train_img_per_s"
+
+
+def read(facts):
+    return program_trace.phase_pct(facts, ("train.r1",))

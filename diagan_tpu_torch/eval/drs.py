@@ -28,6 +28,7 @@ import torch
 
 from diagan_tpu_torch.device import resolve_device
 from diagan_tpu_torch.train.logger import save_image_grid
+from diagan_tpu_torch.utils.trace import count, span
 
 
 def minmax_uint8(images):
@@ -132,26 +133,40 @@ class DRS:
     def generate_images(self, num_images, return_uint8=False, minmax_uint8=False):
         """Rejection-sample `num_images` accepted images as a numpy array:
         [-1, 1] floats NHWC, or uint8 by the fixed 127.5 scale or per-image
-        min-max. Quantization runs on the card, before the copy to the host."""
+        min-max. Quantization runs on the card, before the copy to the host.
+
+        Spans a batch: `drs.generate` (latents, G), `drs.discriminate` (D),
+        `drs.select` (uniforms, running max, accept test, compaction; the
+        max's copy to the card waits for the queue, as a copy from pageable
+        memory does), `drs.collect` (the host's reads of the max, the count
+        and the accepted images, each a `host_sync`, and the
+        quantization); a request: `drs.concat`."""
         out = []
         n = 0
         while n < num_images:
-            imgs = self.gen_fn(self._latents())
-            ldr = self.disc_fn(imgs)
-            u = torch.rand((self.batch_size,), generator=self.generator, device=self.device)
-            maximum = torch.tensor(self.maximum, dtype=ldr.dtype, device=self.device)
-            packed, n_acc, m = self._accept_compact(imgs, ldr, u, maximum)
-            self.maximum = float(m)
-            k = int(n_acc)
-            self.proposed += self.batch_size
-            self.accepted += k
-            if k == 0:
-                continue
-            packed = packed[:k]
-            if minmax_uint8:
-                packed = _minmax_uint8(packed)
-            elif return_uint8:
-                packed = to_uint8(packed)
-            out.append(packed.cpu().numpy())
-            n += k
-        return np.concatenate(out, axis=0)[:num_images]
+            with span("drs.generate", self.device):
+                imgs = self.gen_fn(self._latents())
+            with span("drs.discriminate", self.device):
+                ldr = self.disc_fn(imgs)
+            with span("drs.select", self.device):
+                u = torch.rand((self.batch_size,), generator=self.generator, device=self.device)
+                maximum = torch.tensor(self.maximum, dtype=ldr.dtype, device=self.device)
+                packed, n_acc, m = self._accept_compact(imgs, ldr, u, maximum)
+            with span("drs.collect", self.device):
+                count("host_sync", 2)
+                self.maximum = float(m)
+                k = int(n_acc)
+                self.proposed += self.batch_size
+                self.accepted += k
+                if k == 0:
+                    continue
+                packed = packed[:k]
+                if minmax_uint8:
+                    packed = _minmax_uint8(packed)
+                elif return_uint8:
+                    packed = to_uint8(packed)
+                count("host_sync")
+                out.append(packed.cpu().numpy())
+                n += k
+        with span("drs.concat"):
+            return np.concatenate(out, axis=0)[:num_images]

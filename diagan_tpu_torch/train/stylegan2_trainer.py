@@ -51,6 +51,13 @@ logits while the others wait, and a SIGTERM on any rank stops every rank
 after the same step. fuse_steps=False with data parallelism raises, as in
 the JAX trainer.
 
+Tracing (utils/trace.py, while a torch.profiler session collects): each
+step's phases are spans timed on the card as well (`train.d_main`,
+`train.d_twin`, `train.r1`, `train.g`, `train.path`, with `ada.augment`
+nested in them), and the host's work between them is spanned too
+(`data.draw` with `data.gather` and `data.staging_wait`, `ada.draw`,
+`train.draw`, `train.tune_ada` with its `host_sync`).
+
 The TPU dispatch machinery of the JAX trainer (scanned chunks, the dispatch
 envelope, per-variant programs, shard_map) has no counterpart: the card runs
 the loop eagerly, one step at a time. `fuse_steps` and `max_chunk` are kept
@@ -98,6 +105,7 @@ from diagan_tpu_torch.parallel import all_reduce_grads_, all_reduce_mean_, broad
 from diagan_tpu_torch.train.checkpoint import read_stylegan2_file
 from diagan_tpu_torch.train.state import load_adam_moments, load_moments
 from diagan_tpu_torch.train.steps import rank_seed
+from diagan_tpu_torch.utils.trace import count, span
 
 EMA_DECAY = 0.5 ** (32 / (10 * 1000))
 SWEEP_SLAB_BYTES = 256 << 20  # host slab of a streamed logit sweep (whole batches)
@@ -149,9 +157,11 @@ class _Staging:
         k = self.i % len(self.bufs)
         self.i += 1
         if self.events[k] is not None:
-            self.events[k].synchronize()
+            with span("data.staging_wait"):
+                self.events[k].synchronize()
         buf = self.bufs[k]
-        gather_u8(images, idx, out=buf.numpy())
+        with span("data.gather"):
+            gather_u8(images, idx, out=buf.numpy())
         x = buf.to(self.device, non_blocking=self.pinned).float() / 127.5 - 1.0
         if self.pinned:
             self.events[k] = torch.cuda.Event()
@@ -292,32 +302,37 @@ class StyleGAN2Trainer:
     # ------------------------------------------------------------------
     # draws
     def draw_fakes(self, n):
-        z1, z2 = (torch.randn((n, self.style_dim), generator=self.rng, device=self.device)
-                  for _ in range(2))
-        mix = bool(torch.rand((), generator=self.host_rng) < self.mixing)
-        cutoff = (int(torch.randint(1, self.n_latent, (), generator=self.host_rng))
-                  if mix else self.n_latent)
+        with span("train.draw"):
+            z1, z2 = (torch.randn((n, self.style_dim), generator=self.rng, device=self.device)
+                      for _ in range(2))
+            mix = bool(torch.rand((), generator=self.host_rng) < self.mixing)
+            cutoff = (int(torch.randint(1, self.n_latent, (), generator=self.host_rng))
+                      if mix else self.n_latent)
         return FakeDraws(z1, z2, cutoff, self.draw_noises(n))
 
     def draw_noises(self, n):
-        return [torch.randn(s, generator=self.rng, device=self.device)
-                for s in self.gen.synthesis.noise_shapes(n)]
+        with span("train.draw"):
+            return [torch.randn(s, generator=self.rng, device=self.device)
+                    for s in self.gen.synthesis.noise_shapes(n)]
 
     def draw_real(self, weighted):
         """A batch of reals in [-1, 1], NHWC; weighted by the phase-2 scores
-        when `weighted` and the trainer has them, else uniform."""
-        if self.stream:  # the global stack's indices, this rank's slice gathered
-            bs, n = self.batch_size, self.batch_size * self.world
-            if weighted and self._w_sampler is not None:
-                idx = self._w_sampler.sample(n)
+        when `weighted` and the trainer has them, else uniform. Span
+        `data.draw`: the indices, the gather and the copy to the device."""
+        with span("data.draw"):
+            if self.stream:  # the global stack's indices, this rank's slice gathered
+                bs, n = self.batch_size, self.batch_size * self.world
+                if weighted and self._w_sampler is not None:
+                    idx = self._w_sampler.sample(n)
+                else:
+                    idx = self._u_rng.integers(0, self.num_data, n)
+                return self._staging(self.images_np, idx[self.rank * bs:(self.rank + 1) * bs])
+            if weighted and self.weights is not None:
+                idx = sample_weighted_indices(self.weights, self.batch_size, self.rng)
             else:
-                idx = self._u_rng.integers(0, self.num_data, n)
-            return self._staging(self.images_np, idx[self.rank * bs:(self.rank + 1) * bs])
-        if weighted and self.weights is not None:
-            idx = sample_weighted_indices(self.weights, self.batch_size, self.rng)
-        else:
-            idx = sample_uniform_indices(self.num_data, self.batch_size, self.rng, self.device)
-        return self.real_batch(idx)
+                idx = sample_uniform_indices(self.num_data, self.batch_size, self.rng,
+                                             self.device)
+            return self.real_batch(idx)
 
     def real_batch(self, idx):
         return self.images[idx].float() / 127.5 - 1.0
@@ -327,71 +342,88 @@ class StyleGAN2Trainer:
         augment is off this step (no ADA, or p == 0)."""
         if not self.use_augment or self.ada_aug_p == 0:
             return None
-        return sample_augment(self.batch_size, self.ada_aug_p, self.size, self.size,
-                              self.host_rng)
+        with span("ada.draw"):
+            return sample_augment(self.batch_size, self.ada_aug_p, self.size, self.size,
+                                  self.host_rng)
 
     # ------------------------------------------------------------------
     # steps
     def _augment(self, x, aug):
+        """ADA's forward (span `ada.augment`, nested in the step's phase):
+        the inverse and the pad choice on the host, the copies of the draws,
+        the warp's FIR passes and gather, the colour transform."""
         if aug is None:
             return x
-        return augment(x, self.ada_aug_p, *aug, pad_frac=self.ada_pad_frac,
-                       pad_buckets=self.ada_pad_buckets)
+        with span("ada.augment", self.device):
+            return augment(x, self.ada_aug_p, *aug, pad_frac=self.ada_pad_frac,
+                           pad_buckets=self.ada_pad_buckets)
 
     def _fake(self, fd):
         return self.gen.sample([fd.z1, fd.z2], fd.cutoff, noises=fd.noises)
 
     def d_step(self, disc, optim, real, fake_draws, aug_real, aug_fake):
-        with torch.no_grad():
-            fake = self._fake(fake_draws)
-        rp = disc(self._augment(real, aug_real))[0]
-        fp = disc(self._augment(fake, aug_fake))[0]
-        loss = d_logistic_loss(rp, fp)
-        optim.zero_grad(set_to_none=True)
-        loss.backward()
-        self._reduce_grads(disc)
-        optim.step()
+        """The D step (span `train.d_main`, or `train.d_twin` for the twin
+        DRS D): fakes under no_grad, D on reals and fakes, backward, Adam."""
+        with span("train.d_twin" if disc is self.drs_disc else "train.d_main", self.device):
+            with torch.no_grad():
+                fake = self._fake(fake_draws)
+            rp = disc(self._augment(real, aug_real))[0]
+            fp = disc(self._augment(fake, aug_fake))[0]
+            loss = d_logistic_loss(rp, fp)
+            optim.zero_grad(set_to_none=True)
+            loss.backward()
+            self._reduce_grads(disc)
+            optim.step()
         rp = rp.detach()
         return {"d": loss.detach(), "real_score": rp.mean(), "fake_score": fp.detach().mean(),
                 "sign_real": torch.sign(rp).sum()}
 
     def r1_step(self, disc, optim, real, aug):
-        real = self._augment(real, aug).detach().requires_grad_(True)
-        pen = r1_penalty(disc(real)[0], real)
-        optim.zero_grad(set_to_none=True)
-        (self.r1_weight / 2 * pen * self.d_reg_every).backward()
-        self._reduce_grads(disc)
-        optim.step()
+        """Lazy R1 for `disc` (span `train.r1`): the penalty's double
+        backward and Adam."""
+        with span("train.r1", self.device):
+            real = self._augment(real, aug).detach().requires_grad_(True)
+            pen = r1_penalty(disc(real)[0], real)
+            optim.zero_grad(set_to_none=True)
+            (self.r1_weight / 2 * pen * self.d_reg_every).backward()
+            self._reduce_grads(disc)
+            optim.step()
         return {"r1": pen.detach()}
 
     def g_step(self, fake_draws, aug):
-        self.disc.requires_grad_(False)  # D takes no gradient in the G step
-        try:
-            loss = g_nonsaturating_loss(self.disc(self._augment(self._fake(fake_draws), aug))[0])
-            self.g_optim.zero_grad(set_to_none=True)
-            loss.backward()
-            self._reduce_grads(self.gen)
-            self.g_optim.step()
-        finally:
-            self.disc.requires_grad_(True)
-        self.update_ema()
+        """The G step through the augmented fake, then the EMA (span
+        `train.g`)."""
+        with span("train.g", self.device):
+            self.disc.requires_grad_(False)  # D takes no gradient in the G step
+            try:
+                loss = g_nonsaturating_loss(
+                    self.disc(self._augment(self._fake(fake_draws), aug))[0])
+                self.g_optim.zero_grad(set_to_none=True)
+                loss.backward()
+                self._reduce_grads(self.gen)
+                self.g_optim.step()
+            finally:
+                self.disc.requires_grad_(True)
+            self.update_ema()
         return {"g": loss.detach()}
 
     def path_step(self, z, noises, path_noise):
         """z (M, style_dim), noises (NHWC list) and path_noise (M, H, W, 3)
-        standard normal, M = bs // path_batch_shrink."""
-        w = self.gen.mapping(z)
-        styles = w[:, None, :].expand(-1, self.n_latent, -1)
-        imgs = self.gen.synthesis(styles, noises).permute(0, 2, 3, 1)
-        pen, lengths, new_mean = path_length_penalty(imgs, styles, path_noise, self.pl_mean)
-        # the 0 * sum term keeps the images in the graph, as the reference does
-        loss = self.path_regularize * self.g_reg_every * pen + 0.0 * imgs[:1].sum()
-        self.g_optim.zero_grad(set_to_none=True)
-        loss.backward()
-        self._reduce_grads(self.gen)
-        self.g_optim.step()
-        self.pl_mean = new_mean.detach()
-        self.update_ema()
+        standard normal, M = bs // path_batch_shrink. The path-length step,
+        then the EMA (span `train.path`)."""
+        with span("train.path", self.device):
+            w = self.gen.mapping(z)
+            styles = w[:, None, :].expand(-1, self.n_latent, -1)
+            imgs = self.gen.synthesis(styles, noises).permute(0, 2, 3, 1)
+            pen, lengths, new_mean = path_length_penalty(imgs, styles, path_noise, self.pl_mean)
+            # the 0 * sum term keeps the images in the graph, as the reference does
+            loss = self.path_regularize * self.g_reg_every * pen + 0.0 * imgs[:1].sum()
+            self.g_optim.zero_grad(set_to_none=True)
+            loss.backward()
+            self._reduce_grads(self.gen)
+            self.g_optim.step()
+            self.pl_mean = new_mean.detach()
+            self.update_ema()
         return {"path": pen.detach(), "path_length": lengths.detach().mean()}
 
     @torch.no_grad()
@@ -418,10 +450,11 @@ class StyleGAN2Trainer:
         m.update(self.g_step(self.draw_fakes(bs), self.draw_aug()))
         if self.g_reg_every and step % self.g_reg_every == 0:
             pbs = max(1, bs // self.path_batch_shrink)
-            z = torch.randn((pbs, self.style_dim), generator=self.rng, device=self.device)
-            noises = self.draw_noises(pbs)
-            path_noise = torch.randn((pbs, self.size, self.size, 3), generator=self.rng,
-                                     device=self.device)
+            with span("train.draw"):
+                z = torch.randn((pbs, self.style_dim), generator=self.rng, device=self.device)
+                noises = self.draw_noises(pbs)
+                path_noise = torch.randn((pbs, self.size, self.size, 3), generator=self.rng,
+                                         device=self.device)
             m.update(self.path_step(z, noises, path_noise))
         return m
 
@@ -565,11 +598,16 @@ class StyleGAN2Trainer:
     def tune_ada(self, metrics):
         """Adaptive ADA's update from one step's metrics: sign_real summed
         over the ranks (replaced in `metrics`), with the count batch x world,
-        so p is the same on every rank."""
-        if self.dp is not None:
-            metrics["sign_real"] = metrics["sign_real"].clone()
-            dist.all_reduce(metrics["sign_real"], group=self.dp.group)
-        self.ada_aug_p = self.ada.tune(float(metrics["sign_real"]), self.batch_size * self.world)
+        so p is the same on every rank. Span `train.tune_ada`; its read of
+        sign_real is the step's one wait for the device (counter
+        `host_sync`)."""
+        with span("train.tune_ada"):
+            if self.dp is not None:
+                metrics["sign_real"] = metrics["sign_real"].clone()
+                dist.all_reduce(metrics["sign_real"], group=self.dp.group)
+            count("host_sync")
+            self.ada_aug_p = self.ada.tune(float(metrics["sign_real"]),
+                                           self.batch_size * self.world)
 
     def _stopping(self, flag):
         """The SIGTERM flag, on every rank if any rank has it."""
