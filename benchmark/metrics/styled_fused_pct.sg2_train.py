@@ -1,0 +1,12 @@
+"""The share of G's StyledConv epilogues in the traced window that ran as one
+fused bias-act pass (the program's `styled_act_fused` counter over its
+`styled_act`: the D steps' fakes, made with autograd off, take it; the G and
+path steps do not); None when the program counted none."""
+from benchmark.harness import program_trace
+
+LAYER, MOVES = "models", "sg2_train_img_per_s"
+
+
+def read(facts):
+    n = program_trace.per(facts, "styled_act", 1)
+    return 100.0 * program_trace.per(facts, "styled_act_fused", n) if n else None

@@ -16,7 +16,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      configurations of the CPU tests: fp32, bf16, and channels-last in both,
      each call launching the instance fir_instance names,
      then the backward and double backward; fused bias-LeakyReLU at the real
-     shapes in fp32 and bf16;
+     shapes in fp32 and bf16, and its StyledConv epilogue build
+     (styled_leaky_relu) against its plain version bit for bit;
   3b. the training kernels against their plain versions: the fused-act
      backward (dx, db, double backward) at every activation shape, fp32 and
      bf16; ADA's warp gather and its adjoint at each bucket's S2, eight
@@ -51,9 +52,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      run cli.generate, draw DRS samples, with the launch counts (per kernel,
      and kernel A's per instance: the generic one must not launch) zeroed
      before and read after each path; then one G and one D forward on the card and
-     on the CPU, with the same weights and noises;
+     on the CPU, with the same weights and noises; G's images for a batch of
+     128 with the StyledConv epilogue fused against composed, bit for bit
+     (cuDNN deterministic, one process);
   5. timings at the real shapes: kernel, plain version, one PyTorch library
-     call for the same function, and the bytes/ops bound; G images/s, DRS
+     call for the same function, and the bytes/ops bound (the StyledConv
+     epilogue beside the three passes it replaces); G images/s, DRS
      accepted samples/s, and a torch.profiler breakdown of one DRS proposal
      batch (device time by kernel, idle share);
   6. the training path at full width on 512 synthetic images (128 and rolled
@@ -357,7 +361,8 @@ def profile(fn, label, smi, tags):
         ms = sum(r[1] for r in rows if tag in r[0])
         print(f"  {tag}: {ms:.3f} ms, {100 * ms / total:.2f}% of summed kernel time")
 
-FORWARD_KERNELS = ("upfirdn2d", "fused_leaky_relu")  # what sampling launches
+# what sampling launches: G's StyledConvs run their epilogue with autograd off
+FORWARD_KERNELS = ("upfirdn2d", "fused_leaky_relu", "styled_leaky_relu")
 # kernel A's device kernels in a profile: all of them, then by kernel
 FIR_TAGS = ("fir_", "fir_kernel", "fir_vec_kernel", "fir_xdown2_kernel", "fir_generic_kernel",
             "fir_cl")
@@ -433,6 +438,121 @@ def fir_launches(path):
     check(fir["generic"] == 0, f"{path} launched kernel A's generic instance: {fir}")
     print(f"{path}: kernel A launches by instance {fir}")
     return fir
+
+
+def styled_inputs(dev, rng, shape, dtype):
+    """A StyledConv epilogue's operands at `shape` (N, C, H, W), in
+    styled_leaky_relu's order: the undemodulated map, its bias, demod in
+    [0.5, 1.5), the noise and its weight, all in `dtype`."""
+    n, c, h, w = shape
+    y = torch.randn(shape, generator=rng, device=dev).to(dtype)
+    b = torch.randn(c, generator=rng, device=dev).to(dtype)
+    d = torch.rand((n, c), generator=rng, device=dev).add_(0.5).to(dtype)
+    noise = torch.randn((n, 1, h, w), generator=rng, device=dev).to(dtype)
+    return y, b, d, noise, torch.tensor(0.3, device=dev).to(dtype)
+
+
+def check_styled_act(dev, rng, ch):
+    """3. flr_fwd's STYLED build (styled_leaky_relu: G's StyledConv epilogue)
+    against its plain version, which is the composition it replaces, bit for
+    bit: every StyledConv output shape at batch 16, and DRS's batch of 128
+    at SIZE and SIZE / 2 px, in fp32 and bf16; each call one launch, counted
+    as styled_leaky_relu."""
+    from diagan_tpu_torch.ops import _build, styled_leaky_relu, styled_leaky_relu_plain
+
+    shapes = [(16, ch[r], r, r) for r in [2**j for j in range(2, int(math.log2(SIZE)) + 1)]]
+    shapes += [(128, ch[SIZE], SIZE, SIZE), (128, ch[SIZE // 2], SIZE // 2, SIZE // 2)]
+    for shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = styled_inputs(dev, rng, shape, dtype)
+            n0 = _build.LAUNCHES["styled_leaky_relu"]
+            got = styled_leaky_relu(*args)
+            check(_build.LAUNCHES["styled_leaky_relu"] == n0 + 1,
+                  f"styled_leaky_relu {shape} {dtype} launches")
+            check(torch.equal(got, styled_leaky_relu_plain(*args)),
+                  f"styled_leaky_relu {shape} {dtype} differs from plain")
+            del got, args
+    print(f"styled_leaky_relu: {len(shapes)} shapes x (fp32, bf16) equal plain bit for bit")
+
+
+def check_styled_images(dev, smi):
+    """4. G's images at SIZE px for a seeded batch of 128, fp32, with cuDNN's
+    deterministic algorithms, in one process: autograd off (each StyledConv
+    one styled_leaky_relu launch) against autograd on with nothing that
+    requires a gradient (the composition: y * demod, + w * noise, the plain
+    bias-act), bit for bit. StyledConv biases and noise weights are drawn
+    away from their zero init; the global RNG is left as it was."""
+    from diagan_tpu_torch.models.stylegan2 import StyledConv, StyleGAN2Generator
+    from diagan_tpu_torch.ops import _build
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+            torch.manual_seed(SEED + 3)
+            gen = StyleGAN2Generator(SIZE, STYLE_DIM, N_MLP, CH_MULT, device=dev)
+        gen.requires_grad_(False)
+        styled = [m for m in gen.modules() if isinstance(m, StyledConv)]
+        rng = torch.Generator(dev).manual_seed(SEED + 4)
+        for m in styled:
+            m.bias.copy_(0.3 * torch.randn(m.bias.shape, generator=rng, device=dev))
+            m.noise.weight.copy_(0.3 * torch.randn((), generator=rng, device=dev))
+        z = torch.randn((128, STYLE_DIM), generator=rng, device=dev)
+
+        def images():
+            return gen(z, generator=torch.Generator(dev).manual_seed(SEED + 5))
+
+        _build.reset_launches()
+        with torch.no_grad():
+            fused = images()
+        n_fused = _build.LAUNCHES["styled_leaky_relu"]
+        with torch.enable_grad():
+            composed = images()
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    check(n_fused == len(styled) == _build.LAUNCHES["styled_leaky_relu"],
+          f"{n_fused} styled_leaky_relu launches for {len(styled)} StyledConvs, "
+          f"{_build.LAUNCHES['styled_leaky_relu']} after the composed run")
+    check(fused.shape == (128, SIZE, SIZE, 3) and bool(torch.isfinite(fused).all()),
+          "G's fused images")
+    check(torch.equal(fused, composed), "G's images fused differ from composed, max abs "
+          f"{(fused - composed).abs().max().item()}")
+    print(f"G StyleGAN2-{SIZE}, batch 128, fp32, cuDNN deterministic, one process: images with "
+          f"the epilogue fused ({len(styled)} styled_leaky_relu launches) equal the composed "
+          f"ones bit for bit [{smi}]")
+
+
+def time_styled_act(dev, rng, ch):
+    """5. the kernels-line row of styled_leaky_relu (flr_fwd's STYLED build)
+    at DRS's batch of 128 at SIZE px, fp32: its time, its plain version's,
+    the three passes it replaces on the same tensors (y * demod, + w * noise,
+    the plain bias-act), and its bytes bound (y and the noise read, the
+    output written; demod, bias and weight). Launches are filled in later."""
+    from diagan_tpu_torch.ops import fused_leaky_relu, styled_leaky_relu, styled_leaky_relu_plain
+
+    y, b, d, noise, nw = args = styled_inputs(dev, rng, (128, ch[SIZE], SIZE, SIZE),
+                                              torch.float32)
+    b_s, by_s = bound((2 * y.numel() + noise.numel() + d.numel() + b.numel() + 1) * 4,
+                      6 * y.numel())
+    entry = {
+        "name": "styled_leaky_relu", "route": "triton",
+        "source": "diagan_tpu_torch/ops/fused_act.py",
+        "replaces": "diagan_tpu/ops/fused_act.py:41 and the two passes before it",
+        "launches": 0, "max_abs_err": 0.0,  # phase 3: equal bit for bit
+        "ms": cuda_ms(lambda: styled_leaky_relu(*args)),
+        "plain_ms": cuda_ms(lambda: styled_leaky_relu_plain(*args), iters=3),
+        "bound_ms": b_s, "bound_by": by_s, "library_ms": None,
+        "passes_ms": cuda_ms(lambda: fused_leaky_relu(y * d[:, :, None, None] + nw * noise, b),
+                             iters=3),
+        "shape": f"{tuple(y.shape)} fp32, demod (N, C), noise (N, 1, H, W) (StyledConv epilogue "
+                 f"at {SIZE} px, DRS batch); passes_ms: the three passes it replaces",
+    }
+    print(f"styled_leaky_relu at {entry['shape']}: {entry['ms']:.4f} ms, plain "
+          f"{entry['plain_ms']:.4f} ms, three passes {entry['passes_ms']:.4f} ms, bound "
+          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}), "
+          f"{entry['bound_ms'] / entry['ms']:.3f} of the bound")
+    return entry
 
 
 def check_act_backward(dev, rng, ch):
@@ -4031,9 +4151,10 @@ def bf16_train_step_card_vs_cpu(dev, smi, work):
 def time_bf16_kernels(dev, rng, ch, k4, smi, runs, against=()):
     """14d. The bf16 instances A1-A3 and the fused act's kernels at the bf16
     step's shapes (the SIZE px G upsample blur, the ToRGB skip and its
-    backward; the styled conv's activation at SIZE px): each against its plain
-    version in bf16 (kernel A 1e-2 x max|out|, as phase 3; the fused act 1
-    ulp, its db 1e-5 x sum|dx| per channel), its time (kernel A by CUDA-graph
+    backward; the styled conv's activation and its epilogue build at SIZE
+    px): each against its plain version in bf16 (kernel A 1e-2 x max|out|,
+    as phase 3; the fused act 1 ulp, its db 1e-5 x sum|dx| per channel, the
+    epilogue bit for bit), its time (kernel A by CUDA-graph
     replay in turns with one cuDNN call in bf16, the fused act eagerly, as
     their fp32 rows), its plain version's and its bytes bound (bf16 reads and
     writes: half the fp32 bytes). Launches: the bf16 launches of phase 14a's
@@ -4049,6 +4170,8 @@ def time_bf16_kernels(dev, rng, ch, k4, smi, runs, against=()):
         fused_leaky_relu_backward,
         fused_leaky_relu_backward_plain,
         fused_leaky_relu_plain,
+        styled_leaky_relu,
+        styled_leaky_relu_plain,
         upfirdn2d,
         upfirdn2d_plain,
     )
@@ -4131,6 +4254,22 @@ def time_bf16_kernels(dev, rng, ch, k4, smi, runs, against=()):
         "plain_ms": cuda_ms(lambda: fused_leaky_relu_plain(xb, bb)),
         "bound_ms": b_f, "bound_by": by_f, "library_ms": None,
         "shape": f"{tuple(xb.shape)} bf16 (styled conv at {SIZE} px)",
+    })
+    styled = styled_inputs(dev, rng, (16, c, SIZE, SIZE), bf)
+    check(torch.equal(styled_leaky_relu(*styled), styled_leaky_relu_plain(*styled)),
+          "styled_leaky_relu bf16 differs from plain")
+    ys, _, ds, ns, _ = styled
+    b_s, by_s = bound((2 * ys.numel() + ns.numel() + ds.numel() + c + 1) * 2, 6 * ys.numel())
+    kernels.append({
+        "name": "styled_leaky_relu_bf16", "route": "triton",
+        "source": "diagan_tpu_torch/ops/fused_act.py",
+        "replaces": "diagan_tpu/ops/fused_act.py:41 and the two passes before it",
+        "launches": bf16.get("styled_leaky_relu", 0), "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: styled_leaky_relu(*styled)),
+        "plain_ms": cuda_ms(lambda: styled_leaky_relu_plain(*styled)),
+        "bound_ms": b_s, "bound_by": by_s, "library_ms": None,
+        "shape": f"{tuple(ys.shape)} bf16, demod (N, C), noise (N, 1, H, W) (StyledConv "
+                 f"epilogue at {SIZE} px)",
     })
     g = torch.randn(xb.shape, generator=rng, device=dev).to(bf)
     dx, db = fused_leaky_relu_backward(g, y)
@@ -5156,6 +5295,7 @@ def main(argv=None):
                       f"fused_leaky_relu {shape} bf16 differs by more than 1 ulp")
     print(f"fused_leaky_relu: {len(flr_shapes)} shapes x (fp32, bf16) match plain; "
           f"max abs err fp32 {err_b:.3e} (tol 1e-6 x max(1, max|out|); bf16 1 ulp)")
+    check_styled_act(dev, gen_rng, ch)
 
     # 3b. the training path's kernels against their plain versions
     phase("3b. the training kernels against their plain versions")
@@ -5273,6 +5413,7 @@ def main(argv=None):
     check(g_err <= 1e-3 * max(1.0, g_scale), f"G card vs CPU err {g_err}")
     check(d_err <= 1e-3 * max(1.0, d_scale), f"D card vs CPU err {d_err}")
     print(f"launches per forward at {SIZE} px: G {per_g}, D {per_d}")
+    check_styled_images(dev, smi)
 
     # 5. timings at the real shapes
     phase("5. serving timings")
@@ -5312,12 +5453,15 @@ def main(argv=None):
         # no single PyTorch call adds a per-channel bias, applies LeakyReLU
         # and scales
         "library_ms": None,
-        "shape": f"{tuple(xb.shape)} fp32 (styled conv at {SIZE} px)",
+        "shape": f"{tuple(xb.shape)} fp32 (styled conv at {SIZE} px; the plain build, which D "
+                 f"and the mapping net launch)",
     })
     for k in kernels:
         print(f"{k['name']} at {k['shape']}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
               f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms ({k['bound_by']}) "
               f"[{smi}]")
+    kernels.append(time_styled_act(dev, gen_rng, ch))
+    kernels[-1]["launches"] = launches_gen["styled_leaky_relu"] + launches_drs["styled_leaky_relu"]
 
     z32 = torch.randn((32, STYLE_DIM), generator=gen_rng, device=dev)
     g_ms = cuda_ms(lambda: gen_fn(z32), iters=3, warmup=1)

@@ -14,7 +14,10 @@ bridge flips the JAX kernel for those layers.
 
 The modulated conv keeps the JAX formulation: scale the input by the style s,
 run one ordinary conv, scale the output by demod (computed in fp32), which
-equals the reference's per-sample weights. The blur always runs through
+equals the reference's per-sample weights. With autograd off (sampling,
+DRS, the D step's fakes) a StyledConv hands the undemodulated conv output,
+demod and its noise to one bias-act pass (ops styled_leaky_relu) instead of
+three passes over the map, with the same bits. The blur always runs through
 upfirdn2d (the JAX blur fold is a TPU MXU trade and is off on its CPU
 backend, so the parity tests compare the unfolded form on both sides).
 
@@ -42,7 +45,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from diagan_tpu_torch.device import resolve_device
-from diagan_tpu_torch.ops import fused_leaky_relu, make_resample_kernel, upfirdn2d
+from diagan_tpu_torch.ops import fused_leaky_relu, make_resample_kernel, styled_leaky_relu, \
+    upfirdn2d
+from diagan_tpu_torch.utils import trace
 
 BLUR_KERNEL = (1, 3, 3, 1)
 
@@ -150,7 +155,14 @@ class ModulatedConv(nn.Module):
             self.blur = Blur(blur_kernel, pad=((p + 1) // 2, p // 2), device=device)
 
     def forward(self, x, style):
+        y, demod = self.modulated(x, style)
+        return y if demod is None else y * demod[:, :, None, None]
+
+    def modulated(self, x, style):
+        """(y, demod): the conv of the modulated input before demodulation,
+        and demod (N, O) in the compute dtype (None without demodulation)."""
         s = self.modulation(style).float()  # (N, I)
+        demod = None
         w = self.weight * self.scale  # fp32
         if self.demodulate:
             # d_n = 1/sqrt(sum_{k,I} (w * s_n)^2), in fp32
@@ -166,9 +178,7 @@ class ModulatedConv(nn.Module):
             y = F.conv2d(self.blur(xs), w, stride=2)
         else:
             y = F.conv2d(xs, w, padding=self.kernel_size // 2)
-        if self.demodulate:
-            y = y * demod[:, :, None, None]
-        return y
+        return y, demod
 
 
 class NoiseInjection(nn.Module):
@@ -177,12 +187,17 @@ class NoiseInjection(nn.Module):
         self.weight = nn.Parameter(torch.zeros((), device=device))
 
     def forward(self, x, noise=None, generator=None):
-        """noise: (N, 1, H, W), or None to draw it from `generator`."""
+        return x + self.weight.to(x.dtype) * self.draw(x, noise, generator)
+
+    @staticmethod
+    def draw(x, noise=None, generator=None):
+        """The noise for map x in x's dtype: `noise` (N, 1, H, W), or None to
+        draw it from `generator`."""
         if noise is None:
             n, _, h, w = x.shape
             noise = torch.randn((n, 1, h, w), generator=generator, device=x.device,
                                 dtype=x.dtype)
-        return x + self.weight.to(x.dtype) * noise.to(x.dtype)
+        return noise.to(x.dtype)
 
 
 class StyledConv(nn.Module):
@@ -197,8 +212,18 @@ class StyledConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
     def forward(self, x, style, noise=None, generator=None):
-        y = self.noise(self.conv(x, style), noise, generator)
-        return fused_leaky_relu(y, self.bias.to(y.dtype))
+        """With autograd off the demodulation, the noise and the bias-act run
+        as one pass (styled_leaky_relu), with the same bits; under autograd
+        they stay three differentiable steps."""
+        trace.count("styled_act")
+        if torch.is_grad_enabled():
+            y = self.noise(self.conv(x, style), noise, generator)
+            return fused_leaky_relu(y, self.bias.to(y.dtype))
+        trace.count("styled_act_fused")
+        y, demod = self.conv.modulated(x, style)
+        return styled_leaky_relu(y, self.bias.to(y.dtype), demod,
+                                 self.noise.draw(y, noise, generator),
+                                 self.noise.weight.to(y.dtype))
 
 
 class ToRGB(nn.Module):

@@ -13,6 +13,8 @@ from diagan_tpu_torch.ops.fused_act import (
     fused_leaky_relu_backward,
     fused_leaky_relu_backward_plain,
     fused_leaky_relu_plain,
+    styled_leaky_relu,
+    styled_leaky_relu_plain,
 )
 from diagan_tpu_torch.ops.upfirdn2d import make_resample_kernel, upfirdn2d, upfirdn2d_plain
 from diagan_tpu_torch.ops.warp import (
@@ -36,6 +38,8 @@ __all__ = [
     "fused_leaky_relu_backward_plain",
     "fused_leaky_relu_plain",
     "make_resample_kernel",
+    "styled_leaky_relu",
+    "styled_leaky_relu_plain",
     "upfirdn2d",
     "upfirdn2d_plain",
 ]

@@ -9,10 +9,12 @@ of an (N, C) matrix (mapping network and discriminator head). Same forward
 and backward as the JAX package's fused_leaky_relu and its custom VJP (the
 reference's fused_bias_act, act=3, and FusedLeakyReLUFunctionBackward).
 
-Three functions touch a kernel, and each launches its kernel for a CUDA
+Four functions touch a kernel, and each launches its kernel for a CUDA
 tensor and runs its plain-torch version for a CPU tensor, and does nothing
 else:
   - the forward: the Triton forward kernel (`flr_fwd`);
+  - `styled_leaky_relu`: the same kernel with G's StyledConv epilogue
+    folded in (below);
   - `fused_leaky_relu_backward`: the Triton backward kernels (`flr_bwd`
     writes dx and one partial channel sum per program, `flr_db` adds the
     partials in a fixed order);
@@ -20,6 +22,15 @@ else:
 `fused_leaky_relu` is the differentiable entry point built from them: its
 backward is another autograd.Function whose own backward gives the second
 derivative that R1 and path regularisation take.
+
+`styled_leaky_relu` is the forward alone, with autograd off:
+
+    y = scale * leaky_relu(((x * demod) + (noise_weight * noise)) + bias)
+
+with demod (N, C) per map and noise (N, 1, H, W) broadcast over the
+channels, each product and the sum rounded to x's dtype, as the three
+passes it replaces round them: `flr_fwd` with its STYLED flag, built
+without FMA contraction, gives their bits.
 """
 from __future__ import annotations
 
@@ -42,6 +53,14 @@ def fused_leaky_relu_plain(x, bias, negative_slope=_SLOPE, scale=_SCALE):
     """Plain-torch forward: fp32 math, one rounding to x's dtype at the end."""
     y = x.float() + _bias_view(x, bias).float()
     return (torch.where(y > 0, y, y * negative_slope) * scale).to(x.dtype)
+
+
+def styled_leaky_relu_plain(x, bias, demod, noise, noise_weight, negative_slope=_SLOPE,
+                            scale=_SCALE):
+    """Plain-torch StyledConv epilogue: the composition it replaces, in its
+    order (x * demod, + noise_weight * noise, then the bias-act)."""
+    x = x * demod[:, :, None, None] + noise_weight * noise
+    return fused_leaky_relu_plain(x, bias, negative_slope, scale)
 
 
 def fused_leaky_relu_backward_plain(g, y, negative_slope=_SLOPE, scale=_SCALE, extra=None,
@@ -68,16 +87,27 @@ def _kernels():
     import triton.language as tl
 
     @triton.jit
-    def flr_fwd(x_ptr, b_ptr, y_ptr, numel, inner, channels, slope, scale,
-                BLOCK: tl.constexpr):
+    def flr_fwd(x_ptr, b_ptr, y_ptr, d_ptr, n_ptr, w_ptr, numel, inner, channels, slope,
+                scale, STYLED: tl.constexpr, BLOCK: tl.constexpr):
         # Replaces diagan_tpu/ops/fused_act.py:_pallas_forward. Bound: bytes
         # (x read once, y written once, 2 flops per element); one program
         # streams BLOCK contiguous elements, the channel of each comes from
         # its flat offset, and the bias gather hits L1 (C floats).
+        # STYLED folds G's StyledConv epilogue in: x * demod[n, c], then
+        # + w * noise[n, h, w], each rounded to x's dtype as the separate
+        # passes round it (the launch turns FMA contraction off); the noise
+        # adds a read of 1/C of the map, the demod gather hits L1.
         offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
         mask = offs < numel
         ch = (offs // inner) % channels
         x = tl.load(x_ptr + offs, mask=mask).to(tl.float32)
+        if STYLED:
+            d = tl.load(d_ptr + offs // inner, mask=mask).to(tl.float32)
+            x = (x * d).to(x_ptr.dtype.element_ty).to(tl.float32)
+            nz = tl.load(n_ptr + (offs // (inner * channels)) * inner + offs % inner,
+                         mask=mask).to(tl.float32)
+            wn = (tl.load(w_ptr).to(tl.float32) * nz).to(x_ptr.dtype.element_ty)
+            x = (x + wn.to(tl.float32)).to(x_ptr.dtype.element_ty).to(tl.float32)
         b = tl.load(b_ptr + ch, mask=mask).to(tl.float32)
         v = x + b
         v = tl.where(v > 0, v, v * slope) * scale
@@ -142,23 +172,45 @@ def _check_vec(name, v, x):
         raise ValueError(f"{name} must be a contiguous ({c},) tensor on the input's device")
 
 
-def _launch_forward(x, bias, negative_slope, scale):
+def _check_epilogue(x, demod, noise, noise_weight):
+    if x.ndim != 4:
+        raise ValueError(f"styled_leaky_relu takes an (N, C, H, W) map, got {tuple(x.shape)}")
+    n, c = x.shape[:2]
+    for name, t, shape in (("demod", demod, (n, c)), ("noise", noise, (n, 1) + x.shape[2:]),
+                           ("noise_weight", noise_weight, ())):
+        if t.shape != shape or t.dtype != x.dtype or t.device != x.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {shape} tensor of the map's dtype "
+                             "and device")
+
+
+def _launch_forward(x, bias, negative_slope, scale, epilogue=None):
+    """flr_fwd on x; with epilogue = (demod, noise, noise_weight) its STYLED
+    build, counted apart as `styled_leaky_relu`."""
     from diagan_tpu_torch.ops import _build
 
     _check("fused_leaky_relu", x)
     _check_vec("bias", bias, x)
+    if epilogue is not None:
+        _check_epilogue(x, *epilogue)
     y = torch.empty_like(x)
     numel = x.numel()
     if numel == 0:
         return y
     inner = 1 if x.ndim == 2 else x.shape[2] * x.shape[3]
     grid = (-(-numel // _BLOCK),)
+    # the epilogue's roundings hold only without FMA contraction; the plain
+    # bias-act has no product to contract and keeps its default build
+    styled = epilogue is not None
+    fold = {"enable_fp_fusion": False} if styled else {}
     with torch.cuda.device(x.device):
-        _kernels()[0][grid](x, bias, y, numel, inner, x.shape[1], float(negative_slope),
-                            float(scale), BLOCK=_BLOCK, num_warps=4)
-    _build.LAUNCHES["fused_leaky_relu"] += 1
+        _kernels()[0][grid](x, bias, y, *(epilogue or (x, x, x)), numel, inner, x.shape[1],
+                            float(negative_slope), float(scale), STYLED=styled, BLOCK=_BLOCK,
+                            num_warps=4, **fold)
+    name = "styled_leaky_relu" if styled else "fused_leaky_relu"
+    _build.LAUNCHES[name] += 1
     if x.dtype == torch.bfloat16:
-        _build.count_bf16("fused_leaky_relu")
+        _build.count_bf16(name)
     return y
 
 
@@ -209,6 +261,22 @@ def _forward(x, bias, negative_slope, scale):
     if _on(x):
         return _launch_forward(x, bias, negative_slope, scale)
     return fused_leaky_relu_plain(x, bias, negative_slope, scale)
+
+
+def styled_leaky_relu(x, bias, demod, noise, noise_weight, negative_slope=_SLOPE,
+                      scale=_SCALE):
+    """scale * leaky_relu(((x * demod) + (noise_weight * noise)) + bias), x an
+    (N, C, H, W) map, demod (N, C), noise (N, 1, H, W), noise_weight a 0-dim
+    tensor, all in x's dtype, bias (C,): the StyledConv epilogue in one pass,
+    forward only (the kernel on CUDA, the plain version on CPU). It records
+    no autograd graph, so it refuses inputs that need one."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, bias, demod, noise, noise_weight)):
+        raise RuntimeError("styled_leaky_relu has no backward: call it with autograd off")
+    if _on(x):
+        return _launch_forward(x.contiguous(), bias, negative_slope, scale,
+                               (demod, noise, noise_weight))
+    return styled_leaky_relu_plain(x, bias, demod, noise, noise_weight, negative_slope, scale)
 
 
 def fused_leaky_relu_backward(g, y, negative_slope=_SLOPE, scale=_SCALE, extra=None,

@@ -10,6 +10,8 @@ StyleGAN2 trainer and the DRS sampler, on the CPU:
   its parent;
 - recording changes nothing: losses and weights after two steps are
   bit-equal with it on and off, and so are DRS's images;
+- every StyledConv epilogue counts `styled_act`, and those that ran with
+  autograd off (the D steps' fakes, DRS's G) `styled_act_fused`;
 - DRS records its four spans a batch, its concatenate once a request, and
   a host_sync for each of its reads;
 - a second session starts empty.
@@ -29,6 +31,7 @@ from diagan_tpu_torch.utils import trace  # noqa: E402
 SIZE, BS, STYLE_DIM, N_MLP, WIDTH = 16, 4, 32, 2, 1 / 16
 D_REG, G_REG = 4, 2
 PHASES = ("train.d_main", "train.d_twin", "train.r1", "train.g", "train.path")
+STYLED = 5  # StyledConvs a G forward at 16 px: conv1, then conv_up and conv at 8 and 16
 
 
 @pytest.fixture(autouse=True)
@@ -101,7 +104,11 @@ def test_one_period_gives_the_span_tree(tmp_path):
     assert by.count("train.r1") == 2  # both Ds, on step 0 alone
     assert by.count("train.path") == D_REG // G_REG
     assert by.count("train.tune_ada") == D_REG
-    assert trace.counters() == {"host_sync": D_REG}
+    # G forwards: the fakes of both D steps with autograd off, then the G
+    # step's and the path step's under it
+    fused, recorded = 2 * D_REG, D_REG + D_REG // G_REG
+    assert trace.counters() == {"host_sync": D_REG, "styled_act": STYLED * (fused + recorded),
+                                "styled_act_fused": STYLED * fused}
     # reals: main and twin D a step, both Ds again for R1; each gathered
     n_draws = 2 * D_REG + 2
     assert by.count("data.draw") == by.count("data.gather") == by.count("data.staging_wait") \
@@ -146,19 +153,28 @@ def test_recording_changes_no_loss_and_no_weight(tmp_path):
 
 
 def sampler(batch=8):
-    """A DRS over tiny closures, and the list of its accepted count at each
-    call of D (so the count of each batch is a difference of two)."""
-    w = torch.linspace(-1.0, 1.0, 4 * 4 * 3 * 6).reshape(6, 4 * 4 * 3)
+    """A DRS over a small G, whose weights and noises come from generators
+    of its own (the global RNG is left as it was), and a tiny D closure; and
+    the list of the sampler's accepted count at each call of D (so the count
+    of each batch is a difference of two)."""
+    with torch.random.fork_rng(devices=[]):
+        gen = T.StyleGAN2Generator(size=SIZE, style_dim=STYLE_DIM, n_mlp=N_MLP,
+                                   width_scale=WIDTH, device="cpu").eval()
+    weights = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in gen.parameters():
+            p.copy_(torch.randn(p.shape, generator=weights))
+    noise_rng = torch.Generator().manual_seed(7)
     seen, box = [], {}
 
     def gen_fn(z):
-        return torch.tanh(z @ w).reshape(-1, 4, 4, 3)
+        return gen(z, generator=noise_rng)
 
     def disc_fn(x):
         seen.append(box["drs"].accepted if "drs" in box else 0)
         return 3.0 * x.mean((1, 2, 3))
 
-    box["drs"] = DRS(gen_fn, disc_fn, 6, generator=torch.Generator().manual_seed(5),
+    box["drs"] = DRS(gen_fn, disc_fn, STYLE_DIM, generator=torch.Generator().manual_seed(5),
                      batch_size=batch, warmup_batches=2, device="cpu")
     return box["drs"], seen
 
@@ -188,7 +204,8 @@ def test_drs_spans_a_batch_and_the_same_images():
     assert by[:4] == ["drs.generate", "drs.discriminate", "drs.select", "drs.collect"]
     assert all(p is None for *_, p in spans)
     assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))  # one after another
-    assert trace.counters() == {"host_sync": syncs}
+    assert trace.counters() == {"host_sync": syncs, "styled_act": STYLED * batches,
+                                "styled_act_fused": STYLED * batches}
 
 
 def test_a_second_session_starts_empty():
@@ -201,4 +218,5 @@ def test_a_second_session_starts_empty():
     by = names(trace.spans())
     assert by.count("drs.concat") == 1 and by.count("drs.generate") == batches
     assert by[0] == "drs.generate"
-    assert trace.counters() == {"host_sync": syncs}
+    assert trace.counters() == {"host_sync": syncs, "styled_act": STYLED * batches,
+                                "styled_act_fused": STYLED * batches}
