@@ -46,7 +46,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      channels-last kernel named for it; with --against, kernel A of ROOT
      too: its fp32 instances and the bf16 A1-A3 (phase 14d's shapes) must
      give the same bits, and each is timed in the same turns
-     (--kernels-only stops here);
+     (--kernels-only stops here after 3e);
+  3e. StyleGAN3-T's kernels at its DRS cell's shapes (batch 64, full
+     channels), every layer of the 256 px schedule: kernel A's four passes
+     (the fir12 instances at up 2, the generic instance's 24-tap passes at
+     up 4, the crops) against upfirdn2d_plain, each timed against its bytes
+     bound, and flr_fwd's CLAMP build bit for bit against its plain version
+     (and on a forced input that the clamp binds); with --against, the
+     CLAMP-off flr_fwd's PTX against ROOT's, instruction for instruction;
   4. the serving slice at full width (StyleGAN2-256, channel_multiplier 2,
      style_dim 512, n_mlp 8, random weights from a seed): save a checkpoint,
      run cli.generate, draw DRS samples, with the launch counts (per kernel,
@@ -363,6 +370,8 @@ def profile(fn, label, smi, tags):
 
 # what sampling launches: G's StyledConvs run their epilogue with autograd off
 FORWARD_KERNELS = ("upfirdn2d", "fused_leaky_relu", "styled_leaky_relu")
+# StyleGAN3's clamped activation: no StyleGAN2 path launches it
+SG3_KERNELS = ("clamped_leaky_relu",)
 # kernel A's device kernels in a profile: all of them, then by kernel
 FIR_TAGS = ("fir_", "fir_kernel", "fir_vec_kernel", "fir_xdown2_kernel", "fir_generic_kernel",
             "fir_cl")
@@ -1194,7 +1203,7 @@ def train_path(dev, smi, work):
         print(f"{name}: {time.perf_counter() - t0:.2f} s, launches {launches[name]}")
         return out
 
-    interleaved = tuple(k for k in _build.LAUNCHES if k not in WARP2)
+    interleaved = tuple(k for k in _build.LAUNCHES if k not in WARP2 + SG3_KERNELS)
     torch.cuda.reset_peak_memory_stats()
     tr1 = drive("train_ffhq (8 steps)", lambda: train_ffhq.main(
         common + ["--exp_name", "p1", "--iter", "8", "--logit_save_steps", "2",
@@ -1240,7 +1249,7 @@ def train_path(dev, smi, work):
     with polyphase_env():
         trp = drive("train_ffhq polyphase (4 steps)", lambda: train_ffhq.main(
             common + ["--exp_name", "p1_poly", "--iter", "4"]),
-            tuple(k for k in _build.LAUNCHES if k not in WARP), WARP)
+            tuple(k for k in _build.LAUNCHES if k not in WARP + SG3_KERNELS), WARP)
     check((work / "p1_poly" / "checkpoint" / "000004.pt").is_file(),
           "the polyphase run wrote no checkpoint")
     print(f"polyphase phase 1 metrics: {finite_metrics(trp, ('d', 'g', 'r1', 'path'))}")
@@ -5192,6 +5201,171 @@ def bench_profiles(dev, smi, work, steps):
             (*FIR_TAGS, "flr_", "implicit_convolve_sgemm", "nchwToNhwc", "nhwcToNchw"))
     del tr
 
+SG3_BATCH = 64  # the proposal batch of the sg3t_256.drs cell
+
+
+def ptx_body(ptx, dropped_param=None):
+    """The instructions of a Triton kernel's PTX: its .entry body without
+    debug lines (.loc, .file, comments, $L__tmp / $L__func labels), with the
+    parameter numbered `dropped_param` left out of the numbering of those
+    after it (a parameter the other build does not have)."""
+    lines = ptx.splitlines()
+    start = next(i for i, ln in enumerate(lines) if ln.startswith(".visible .entry")
+                 or ln.startswith(".entry"))
+    start = next(i for i in range(start, len(lines)) if lines[i].strip() == "{")
+    end = next(i for i in range(start, len(lines)) if lines[i].strip() == "}")
+
+    def renumber(m):
+        k = int(m.group(1))
+        return f"_param_{k - 1 if dropped_param is not None and k > dropped_param else k}"
+
+    out = []
+    for ln in lines[start + 1:end]:
+        t = ln.strip()
+        if not t or t.startswith((".loc", ".file", "//")) or re.match(r"\$L__(tmp|func)", t):
+            continue
+        out.append(re.sub(r"_param_(\d+)", renumber, t))
+    return out
+
+
+def flr_fwd_ptx(module, dev, clamp_arg):
+    """The PTX of `module`'s flr_fwd (an ops/fused_act.py) built with every
+    flag off, from one launch on a small map."""
+    x = torch.zeros((2, 4, 8, 8), device=dev)
+    b = torch.zeros(4, device=dev)
+    y = torch.empty_like(x)
+    flr_fwd = module._kernels()[0]
+    args = [x, b, y, x, x, x, x.numel(), 64, 4, 0.2, math.sqrt(2.0)]
+    flags = {"STYLED": False}
+    if clamp_arg:
+        args.append(0.0)
+        flags["CLAMP"] = False
+    k = flr_fwd[(1,)](*args, **flags, BLOCK=1024, num_warps=4)
+    torch.cuda.synchronize()
+    return k.asm["ptx"]
+
+
+def stylegan3_kernels(dev, smi, against=()):
+    """3e. StyleGAN3-T's kernels at the sg3t_256.drs cell's shapes (batch 64,
+    full channels), layer by layer on the 256 px schedule: kernel A against
+    upfirdn2d_plain on each layer's four passes (x and y up, x and y down:
+    the fir12 instances at up 2, the generic instance's 24-tap passes at up
+    4, the crops of L3, L5, L7, L10 and L13), each launching the instance
+    fir_instance names and timed (eager, CUDA events) against its bytes
+    bound; flr_fwd's CLAMP build (clamped_leaky_relu) on each activation,
+    bit for bit against its plain version, once more on a forced input that
+    the clamp binds; with ROOTs (--against), the CLAMP-off build's PTX against
+    ROOT's flr_fwd, instruction for instruction. Plain versions run in blocks
+    of 8 images. Writes chiprun_out/stylegan3_kernels.json."""
+    import importlib.util
+
+    from diagan_tpu_torch.models.stylegan3 import SynthesisLayer, synthesis_schedule
+    from diagan_tpu_torch.ops import _build, fused_act, upfirdn2d, upfirdn2d_plain
+    from diagan_tpu_torch.ops.upfirdn2d import fir_instance
+
+    for root in against:
+        spec = importlib.util.spec_from_file_location(
+            "against_fused_act", Path(root) / "diagan_tpu_torch" / "ops" / "fused_act.py")
+        other = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(other)
+        ours, theirs = flr_fwd_ptx(fused_act, dev, True), flr_fwd_ptx(other, dev, False)
+        params = len(re.findall(r"\.param ", ours[:ours.index("{")]))
+        # this tree's `clamp` follows `scale`, the eleventh parameter (0-based 11)
+        a, b = ptx_body(ours, dropped_param=11), ptx_body(theirs)
+        check(a == b, f"flr_fwd with CLAMP off differs from {root}'s PTX "
+                      f"({len(a)} against {len(b)} instructions)")
+        print(f"flr_fwd, CLAMP and STYLED off: the PTX of {root} instruction for instruction "
+              f"({len(a)} lines, parameters aside; {params} parameters here)")
+    rng = torch.Generator(dev).manual_seed(SEED + 30)
+    n, rows, worst = SG3_BATCH, [], 0.0
+    t_start = time.perf_counter()
+    for spec in synthesis_schedule()[1][:-1]:
+        layer = SynthesisLayer(spec, device=dev)
+        up, down, (px0, px1) = spec["up"], spec["down"], spec["padding"][:2]
+        s0, c = spec["in_size"] + spec["conv_kernel"] - 1, spec["out_channels"]
+        x = torch.randn((n, c, s0, s0), generator=rng, device=dev)
+        fu, fd = layer.up_filter * up, layer.down_filter
+        passes = [("up x", fu.reshape(1, -1), (up, 1), (1, 1), (px0, px1, 0, 0)),
+                  ("up y", fu.reshape(-1, 1), (1, up), (1, 1), (0, 0, px0, px1)),
+                  ("act", None, None, None, None),
+                  ("down x", fd.reshape(1, -1), (1, 1), (down, 1), (0, 0, 0, 0)),
+                  ("down y", fd.reshape(-1, 1), (1, 1), (1, down), (0, 0, 0, 0))]
+        for what, taps, u, d, pad in passes:
+            _build.reset_launches()
+            if taps is None:
+                def fn():
+                    return fused_act.clamped_leaky_relu(x, 256.0)
+                inst, plain = "clamped_leaky_relu", (
+                    lambda t: fused_act.clamped_leaky_relu_plain(t, 256.0))
+            else:
+                taps = taps.contiguous()
+
+                def fn():
+                    return upfirdn2d(x, taps, u, d, pad)
+                inst = fir_instance(*taps.shape, u, d, torch.float32, torch.contiguous_format)
+
+                def plain(t):
+                    return upfirdn2d_plain(t, taps, u, d, pad)
+            with torch.no_grad():
+                y = fn()
+            torch.cuda.synchronize()
+            launched = {k: v for counts in (_build.LAUNCHES, _build.FIR_INSTANCES)
+                        for k, v in counts.items() if v}
+            want_launch = ({inst: 1} if taps is None else {"upfirdn2d": 1, inst: 1})
+            check(launched == want_launch, f"{spec['name']} {what}: launched {launched}")
+            err = top = 0.0
+            for i in range(0, n, 8):
+                ref_y = plain(x[i:i + 8])
+                if taps is None:
+                    check(torch.equal(y[i:i + 8], ref_y),
+                          f"{spec['name']} clamped_leaky_relu differs from plain")
+                err = max(err, max_err(y[i:i + 8], ref_y))
+                top = max(top, ref_y.abs().max().item())
+                del ref_y
+            check(err <= 1e-5 * top, f"{spec['name']} {what} ({inst}): err {err} > 1e-5 x {top}")
+            worst = max(worst, err / top)
+            with torch.no_grad():
+                ms = cuda_ms(fn, iters=5, warmup=1)
+            kt = 1 if taps is None else -(-taps.shape[1] // u[0]) * -(-taps.shape[0] // u[1])
+            b_ms, kind = bound(4 * (x.numel() + y.numel()), 0 if taps is None else
+                               2 * y.numel() * kt)
+            rows.append({"layer": spec["name"], "pass": what, "kernel": inst,
+                         "shape": [list(x.shape), list(y.shape)], "pad": pad, "ms": ms,
+                         "bound_ms": b_ms, "bound_by": kind, "roofline_pct": 100 * b_ms / ms,
+                         "rel_err": err / top})
+            x = y
+            del y
+        del x, layer
+        torch.cuda.empty_cache()
+    # the clamp binding: L13's activation on an input scaled past +-256 / sqrt(2)
+    u = torch.randn((8, 128, 522, 522), generator=rng, device=dev) * 1000
+    with torch.no_grad():
+        got = fused_act.clamped_leaky_relu(u, 256.0)
+    want = fused_act.clamped_leaky_relu_plain(u, 256.0)
+    check(torch.equal(got, want) and float(got.max()) == 256.0 and float(got.min()) == -256.0,
+          "clamped_leaky_relu on a forced input differs from plain or does not clamp")
+    del u, got, want
+    for r in rows:
+        print(f"  {r['layer']:12s} {r['pass']:6s} {r['kernel']:18s} {r['shape'][0]} -> "
+              f"{r['shape'][1][2:]}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {r['roofline_pct']:.1f}%, rel err {r['rel_err']:.2e}")
+    by = {}
+    for r in rows:
+        k = by.setdefault(r["kernel"], [0.0, 0.0, 0])
+        k[0], k[1], k[2] = k[0] + r["ms"], k[1] + r["bound_ms"], k[2] + 1
+    for k, (ms, b_ms, cnt) in sorted(by.items()):
+        print(f"stylegan3 at batch {n}: {k}: {cnt} passes, {ms:.3f} ms, bound {b_ms:.3f} ms, "
+              f"{100 * b_ms / ms:.1f}% [{smi}]")
+    total = sum(r["ms"] for r in rows)
+    print(f"stylegan3 kernels: {len(rows)} passes of a batch of {n} match plain (fir rel err "
+          f"<= {worst:.2e}, tol 1e-5; the clamped activation bit for bit, the clamp binding "
+          f"on a forced input); {total:.2f} ms of kernels a batch, bound "
+          f"{sum(r['bound_ms'] for r in rows):.2f} ms; {time.perf_counter() - t_start:.1f} s")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "stylegan3_kernels.json").write_text(json.dumps({"card": smi, "rows": rows}, indent=1))
+    return rows
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5321,6 +5495,9 @@ def main(argv=None):
     against = against_warp(args.against[0]) if args.against else None
     warp_kernels = time_warp(dev, rng_b, smi, errs, against)
     warp_kernels += time_warp2(dev, rng_b, smi, errs, against)
+    # 3e. StyleGAN3-T's kernel A passes and clamped activation at its cell's shapes
+    phase("3e. StyleGAN3-T's kernels at batch 64")
+    stylegan3_kernels(dev, smi, args.against or [])
     if args.kernels_only:
         print(smi)
         return 0

@@ -9,7 +9,8 @@ SNGAN generator draws no noise.
 
 load_eval_models reads the mimicry layout a LogTrainer run writes
 (checkpoints/{netG,netD,netD_drs}/{name}_{step}_steps.pth), or for a
-StyleGAN2 bundle the trainer's checkpoint/{step:06d}.pt.
+StyleGAN2 or StyleGAN3 bundle the checkpoint/{step:06d}.pt layout of the
+StyleGAN2 trainer.
 
 evaluate_checkpoint keeps the JAX package's files byte for byte where they
 are deterministic: the metric JSON, the real statistics cache and the fake
@@ -45,7 +46,8 @@ def _module_device(module):
 
 def make_gen_fn(gen, generator=None):
     """Eval-mode z -> NHWC images closure over `gen`. For StyleGAN2,
-    `generator` draws the per-layer noise (default: seed 0 on gen's device)."""
+    `generator` draws the per-layer noise (default: seed 0 on gen's device);
+    StyleGAN3 and the SNGAN-style generators take no noise."""
     gen.eval()
     noise = isinstance(gen, StyleGAN2Generator)
     if noise and generator is None:
@@ -108,10 +110,10 @@ def load_eval_models(bundle, log_dir, evaluate_step, use_drs=False, use_original
     netD_ckpt_dir, each the port's, the JAX package's or the reference's
     file (train/checkpoint.py load_weights: weights and buffers only, as the
     JAX package's params_only restore).
-    StyleGAN2 runs: g_ema, and with use_drs drs_d (falling back to d), from
-    log_dir/checkpoint/{step:06d}.pt."""
+    StyleGAN2 and StyleGAN3 runs: g_ema, and with use_drs drs_d (falling
+    back to d), from log_dir/checkpoint/{step:06d}.pt."""
     log_dir = Path(log_dir)
-    if bundle.model == "stylegan":
+    if bundle.model in ("stylegan", "stylegan3"):
         path = log_dir / "checkpoint" / f"{evaluate_step:06d}.pt"
         if not path.is_file():
             raise FileNotFoundError(f"missing {path}")

@@ -9,7 +9,9 @@
   25gaussian -> the toy MLPs (nz 2, points of 2, use_sn passed through),
     Adam(1e-4, (0.5, 0.999)), model "toy";
   ffhq -> StyleGAN2 at `size` (default 256; channel_multiplier 2, style_dim
-    512, n_mlp 8), Adam(2e-4, (0.0, 0.9)).
+    512, n_mlp 8), Adam(2e-4, (0.0, 0.9)), model "stylegan" whatever `model`
+    says, but for model "stylegan3": a StyleGAN3-T G (models/stylegan3.py,
+    z_dim 512) with StyleGAN2's D and twin D, both at `size`.
 
 With drs=True a third discriminator (netD_drs) is built, which always
 trains with the ns loss whatever --loss_type says (reference
@@ -20,8 +22,8 @@ celeba, color_mnist and mnist_fmnist models with the bf16 compute dtype
 (models/layers.py), as the JAX package does; the toy ignores it, as there.
 
 The ffhq bundle serves evaluation (eval.evaluate, the eval CLIs); StyleGAN2
-trains through cli/train_ffhq.py. Not in the port yet, and raising: bf16 for
-ffhq.
+trains through cli/train_ffhq.py; StyleGAN3-T only samples (no trainer).
+Not in the port yet, and raising: bf16 for StyleGAN3.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ import torch
 import torch.nn as nn
 
 from diagan_tpu_torch.device import resolve_device
-from diagan_tpu_torch.models import infomax, mnist_dcgan, sngan, ssgan, stylegan2, toy
+from diagan_tpu_torch.models import infomax, mnist_dcgan, sngan, ssgan, stylegan2, stylegan3, toy
 
 
 @dataclasses.dataclass
@@ -82,6 +84,7 @@ _DISC_64 = {
 }
 _STYLEGAN2_G = stylegan2.StyleGAN2Generator
 _STYLEGAN2_D = stylegan2.StyleGAN2Discriminator
+_STYLEGAN3_G = stylegan3.StyleGAN3Generator
 
 
 def get_gan_model(dataset_name, model="sngan", loss_type="hinge", gold=False, drs=False,
@@ -107,8 +110,14 @@ def get_gan_model(dataset_name, model="sngan", loss_type="hinge", gold=False, dr
         make_disc = functools.partial(toy.ToyDiscriminator, use_sn=kwargs.get("use_sn", False))
         opt = OptSpec(1e-4, (0.5, 0.999))
     elif dataset_name == "ffhq":  # bf16: the synthesis and D's backbone (models/stylegan2.py)
-        size, nz, nc, model = kwargs.get("size", 256), 512, 3, "stylegan"
-        make_gen = functools.partial(_STYLEGAN2_G, size=size, dtype=dtype)
+        size, nz, nc = kwargs.get("size", 256), 512, 3
+        if model == "stylegan3":
+            if dtype != torch.float32:
+                raise ValueError("StyleGAN3 runs in float32 only")
+            make_gen = functools.partial(_STYLEGAN3_G, img_resolution=size)
+        else:
+            model = "stylegan"
+            make_gen = functools.partial(_STYLEGAN2_G, size=size, dtype=dtype)
         make_disc = functools.partial(_STYLEGAN2_D, size=size, dtype=dtype)
         opt = OptSpec(2e-4, (0.0, 0.9))
     else:

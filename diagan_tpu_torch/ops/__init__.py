@@ -1,6 +1,6 @@
 """Kernels of the port, each with its plain-torch version, which CPU tensors
 take: upfirdn2d and its backward (CUDA C++), fused bias-LeakyReLU and its
-backward (Triton), and ADA's affine warp and its adjoint on the interleaved
+backward, its StyledConv epilogue and its clamped build (Triton), and ADA's affine warp and its adjoint on the interleaved
 2x buffer and on its two y-phase planes (CUDA C++)."""
 from diagan_tpu_torch.ops.ada_phase import (
     affine_gather2_plain,
@@ -9,6 +9,8 @@ from diagan_tpu_torch.ops.ada_phase import (
     affine_scatter2_plain,
 )
 from diagan_tpu_torch.ops.fused_act import (
+    clamped_leaky_relu,
+    clamped_leaky_relu_plain,
     fused_leaky_relu,
     fused_leaky_relu_backward,
     fused_leaky_relu_backward_plain,
@@ -33,6 +35,8 @@ __all__ = [
     "affine_scatter2",
     "affine_scatter2_plain",
     "affine_scatter_plain",
+    "clamped_leaky_relu",
+    "clamped_leaky_relu_plain",
     "fused_leaky_relu",
     "fused_leaky_relu_backward",
     "fused_leaky_relu_backward_plain",

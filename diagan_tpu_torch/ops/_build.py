@@ -31,9 +31,10 @@ _loaded: dict[str, ctypes.CDLL] = {}
 # per-channel bias gradient) unless the caller skips the sums, as the double
 # backward does: fused_leaky_relu_db counts those flr_db launches.
 # styled_leaky_relu counts flr_fwd's launches with G's StyledConv epilogue
-# folded in (its STYLED build); fused_leaky_relu the plain bias-act's.
+# folded in (its STYLED build); clamped_leaky_relu those of its CLAMP build
+# (StyleGAN3's activation); fused_leaky_relu the plain bias-act's.
 LAUNCHES = {"upfirdn2d": 0, "upfirdn2d_backward": 0, "fused_leaky_relu": 0,
-            "styled_leaky_relu": 0, "fused_leaky_relu_backward": 0, "fused_leaky_relu_db": 0,
+            "styled_leaky_relu": 0, "clamped_leaky_relu": 0, "fused_leaky_relu_backward": 0, "fused_leaky_relu_db": 0,
             "affine_warp_gather": 0, "affine_warp_scatter": 0, "affine_warp2_gather": 0,
             "affine_warp2_scatter": 0}
 # Launches of upfirdn2d (forward and backward together) by kernel instance;

@@ -9,12 +9,14 @@ of an (N, C) matrix (mapping network and discriminator head). Same forward
 and backward as the JAX package's fused_leaky_relu and its custom VJP (the
 reference's fused_bias_act, act=3, and FusedLeakyReLUFunctionBackward).
 
-Four functions touch a kernel, and each launches its kernel for a CUDA
+Five functions touch a kernel, and each launches its kernel for a CUDA
 tensor and runs its plain-torch version for a CPU tensor, and does nothing
 else:
   - the forward: the Triton forward kernel (`flr_fwd`);
   - `styled_leaky_relu`: the same kernel with G's StyledConv epilogue
     folded in (below);
+  - `clamped_leaky_relu`: the same kernel with no bias and its output
+    clamped to [-clamp, clamp] (StyleGAN3's activation, ops/filtered_lrelu.py);
   - `fused_leaky_relu_backward`: the Triton backward kernels (`flr_bwd`
     writes dx and one partial channel sum per program, `flr_db` adds the
     partials in a fixed order);
@@ -63,6 +65,13 @@ def styled_leaky_relu_plain(x, bias, demod, noise, noise_weight, negative_slope=
     return fused_leaky_relu_plain(x, bias, negative_slope, scale)
 
 
+def clamped_leaky_relu_plain(x, clamp, negative_slope=_SLOPE, scale=_SCALE):
+    """Plain-torch clamped activation: the bias-act over a zero bias, then
+    the clamp."""
+    return torch.clamp(fused_leaky_relu_plain(x, x.new_zeros(x.shape[1]), negative_slope, scale),
+                       -clamp, clamp)
+
+
 def fused_leaky_relu_backward_plain(g, y, negative_slope=_SLOPE, scale=_SCALE, extra=None,
                                     sums=True):
     """Plain-torch backward: (dx, db) with dx in g's dtype and db the fp32 sum
@@ -88,7 +97,7 @@ def _kernels():
 
     @triton.jit
     def flr_fwd(x_ptr, b_ptr, y_ptr, d_ptr, n_ptr, w_ptr, numel, inner, channels, slope,
-                scale, STYLED: tl.constexpr, BLOCK: tl.constexpr):
+                scale, clamp, STYLED: tl.constexpr, CLAMP: tl.constexpr, BLOCK: tl.constexpr):
         # Replaces diagan_tpu/ops/fused_act.py:_pallas_forward. Bound: bytes
         # (x read once, y written once, 2 flops per element); one program
         # streams BLOCK contiguous elements, the channel of each comes from
@@ -97,6 +106,7 @@ def _kernels():
         # + w * noise[n, h, w], each rounded to x's dtype as the separate
         # passes round it (the launch turns FMA contraction off); the noise
         # adds a read of 1/C of the map, the demod gather hits L1.
+        # CLAMP clamps the output to [-clamp, clamp] (StyleGAN3's conv_clamp).
         offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
         mask = offs < numel
         ch = (offs // inner) % channels
@@ -111,6 +121,8 @@ def _kernels():
         b = tl.load(b_ptr + ch, mask=mask).to(tl.float32)
         v = x + b
         v = tl.where(v > 0, v, v * slope) * scale
+        if CLAMP:
+            v = tl.minimum(tl.maximum(v, -clamp), clamp)
         tl.store(y_ptr + offs, v.to(y_ptr.dtype.element_ty), mask=mask)
 
     @triton.jit
@@ -184,9 +196,10 @@ def _check_epilogue(x, demod, noise, noise_weight):
                              "and device")
 
 
-def _launch_forward(x, bias, negative_slope, scale, epilogue=None):
+def _launch_forward(x, bias, negative_slope, scale, epilogue=None, clamp=None):
     """flr_fwd on x; with epilogue = (demod, noise, noise_weight) its STYLED
-    build, counted apart as `styled_leaky_relu`."""
+    build, counted apart as `styled_leaky_relu`; with `clamp` its CLAMP
+    build, counted apart as `clamped_leaky_relu`."""
     from diagan_tpu_torch.ops import _build
 
     _check("fused_leaky_relu", x)
@@ -205,9 +218,11 @@ def _launch_forward(x, bias, negative_slope, scale, epilogue=None):
     fold = {"enable_fp_fusion": False} if styled else {}
     with torch.cuda.device(x.device):
         _kernels()[0][grid](x, bias, y, *(epilogue or (x, x, x)), numel, inner, x.shape[1],
-                            float(negative_slope), float(scale), STYLED=styled, BLOCK=_BLOCK,
-                            num_warps=4, **fold)
-    name = "styled_leaky_relu" if styled else "fused_leaky_relu"
+                            float(negative_slope), float(scale), float(clamp or 0.0),
+                            STYLED=styled, CLAMP=clamp is not None, BLOCK=_BLOCK, num_warps=4,
+                            **fold)
+    name = ("styled_leaky_relu" if styled else
+            "clamped_leaky_relu" if clamp is not None else "fused_leaky_relu")
     _build.LAUNCHES[name] += 1
     if x.dtype == torch.bfloat16:
         _build.count_bf16(name)
@@ -277,6 +292,20 @@ def styled_leaky_relu(x, bias, demod, noise, noise_weight, negative_slope=_SLOPE
         return _launch_forward(x.contiguous(), bias, negative_slope, scale,
                                (demod, noise, noise_weight))
     return styled_leaky_relu_plain(x, bias, demod, noise, noise_weight, negative_slope, scale)
+
+
+def clamped_leaky_relu(x, clamp, negative_slope=_SLOPE, scale=_SCALE):
+    """clamp(scale * leaky_relu(x), -clamp, clamp) over dim 1 of an
+    (N, C[, H, W]) tensor in one pass, forward only (the kernel on CUDA, the
+    plain version on CPU). It records no autograd graph, so it refuses an
+    input that needs one."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("clamped_leaky_relu has no backward: call it with autograd off")
+    if _on(x):
+        x = x.contiguous()
+        return _launch_forward(x, x.new_zeros(x.shape[1]), negative_slope, scale,
+                               clamp=float(clamp))
+    return clamped_leaky_relu_plain(x, clamp, negative_slope, scale)
 
 
 def fused_leaky_relu_backward(g, y, negative_slope=_SLOPE, scale=_SCALE, extra=None,

@@ -267,9 +267,10 @@ def test_launch_flags(monkeypatch):
     fused_act._launch_forward(x, b, 0.2, math.sqrt(2.0), (d, n, w))
     (grid0, args0, kw0), (grid1, args1, kw1) = kernel.launches
     assert grid0 == grid1 == (1,)
-    assert kw0 == {"STYLED": False, "BLOCK": 1024, "num_warps": 4}
-    assert kw1 == {"STYLED": True, "BLOCK": 1024, "num_warps": 4, "enable_fp_fusion": False}
-    assert args0[6:] == args1[6:] == (x.numel(), 15, 4, 0.2, math.sqrt(2.0))
+    assert kw0 == {"STYLED": False, "CLAMP": False, "BLOCK": 1024, "num_warps": 4}
+    assert kw1 == {"STYLED": True, "CLAMP": False, "BLOCK": 1024, "num_warps": 4,
+                   "enable_fp_fusion": False}
+    assert args0[6:] == args1[6:] == (x.numel(), 15, 4, 0.2, math.sqrt(2.0), 0.0)
     assert args1[3] is d and args1[4] is n and args1[5] is w
     assert _build.LAUNCHES["fused_leaky_relu"] == 1 == _build.LAUNCHES["styled_leaky_relu"]
     with pytest.raises(ValueError, match="demod"):
