@@ -49,11 +49,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      (--kernels-only stops here after 3e);
   3e. StyleGAN3-T's kernels at its DRS cell's shapes (batch 64, full
      channels), every layer of the 256 px schedule: kernel A's four passes
-     (the fir12 instances at up 2, the generic instance's 24-tap passes at
-     up 4, the crops) against upfirdn2d_plain, each timed against its bytes
+     (the fir12 instances at up 2, the fir24x_up4 / fir24y_up4 pair at up
+     4, the crops) against upfirdn2d_plain, each timed against its bytes
      bound, and flr_fwd's CLAMP build bit for bit against its plain version
      (and on a forced input that the clamp binds); with --against, the
-     CLAMP-off flr_fwd's PTX against ROOT's, instruction for instruction;
+     CLAMP-off flr_fwd's PTX against ROOT's, instruction for instruction,
+     and ROOT's kernel A on every pass (its generic instance where it has
+     no up-4 pair): the same bits, timed in turns; then StyleGAN3-T's DRS
+     path, on which the generic instance must not launch;
   4. the serving slice at full width (StyleGAN2-256, channel_multiplier 2,
      style_dim 512, n_mlp 8, random weights from a seed): save a checkpoint,
      run cli.generate, draw DRS samples, with the launch counts (per kernel,
@@ -1490,7 +1493,9 @@ def against_fir(root, tag=""):
     built here with the port's nvcc flags), called as ops/upfirdn2d.py calls
     upfirdn2d_forward (the same signature and instance codes), for timing and
     comparing against this one on the same card: a function with the
-    arguments and output of upfirdn2d's forward."""
+    arguments and output of upfirdn2d's forward. An instance the other
+    checkout does not have (it refuses the code) runs on its generic
+    instance; `fir.took` maps each instance name to the one that ran."""
     import ctypes
 
     from diagan_tpu_torch.ops import _build
@@ -1522,13 +1527,20 @@ def against_fir(root, tag=""):
         fmt = layout(x)
         y = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device, memory_format=fmt)
         inst = fir_instance(kh, kw, up, down, x.dtype, fmt)
-        err = fn(x.data_ptr(), y.data_ptr(), taps.data_ptr(), _DTYPE_CODE[x.dtype],
-                 FIR_INSTANCES.index(inst), n, c, h, w, oh, ow, *x.stride(), *y.stride(),
-                 kh, kw, up_x, up_y, down_x, down_y, p_x0, p_y0,
-                 torch.cuda.current_stream().cuda_stream)
+
+        def launch(name):
+            return fn(x.data_ptr(), y.data_ptr(), taps.data_ptr(), _DTYPE_CODE[x.dtype],
+                      FIR_INSTANCES.index(name), n, c, h, w, oh, ow, *x.stride(), *y.stride(),
+                      kh, kw, up_x, up_y, down_x, down_y, p_x0, p_y0,
+                      torch.cuda.current_stream().cuda_stream)
+        err = launch(fir.took.get(inst, inst))
+        if err == -1 and inst not in fir.took:  # an instance it does not have
+            fir.took[inst] = "generic"
+            err = launch("generic")
         check(err == 0, f"{root}: upfirdn2d_forward {inst} failed, code {err}")
+        fir.took.setdefault(inst, inst)
         return y
-    fir.root = root
+    fir.root, fir.took = root, {}
     return fir
 
 
@@ -5245,33 +5257,44 @@ def flr_fwd_ptx(module, dev, clamp_arg):
     return k.asm["ptx"]
 
 
-def stylegan3_kernels(dev, smi, against=()):
+def stylegan3_kernels(dev, smi, against=(), fir_against=None):
     """3e. StyleGAN3-T's kernels at the sg3t_256.drs cell's shapes (batch 64,
     full channels), layer by layer on the 256 px schedule: kernel A against
     upfirdn2d_plain on each layer's four passes (x and y up, x and y down:
-    the fir12 instances at up 2, the generic instance's 24-tap passes at up
-    4, the crops of L3, L5, L7, L10 and L13), each launching the instance
+    the fir12 instances at up 2, the fir24x_up4 / fir24y_up4 pair at up 4,
+    the crops of L3, L5, L7, L10 and L13), each launching the instance
     fir_instance names and timed (eager, CUDA events) against its bytes
     bound; flr_fwd's CLAMP build (clamped_leaky_relu) on each activation,
     bit for bit against its plain version, once more on a forced input that
     the clamp binds; with ROOTs (--against), the CLAMP-off build's PTX against
-    ROOT's flr_fwd, instruction for instruction. Plain versions run in blocks
-    of 8 images. Writes chiprun_out/stylegan3_kernels.json."""
+    ROOT's flr_fwd, instruction for instruction, and ROOT's kernel A
+    (`fir_against`: against_fir of each ROOT, built here when None) on every
+    pass: the same bits, and timed in turns with this tree's (this, ROOT,
+    ROOT, this), on the generic instance where ROOT has no up-4 pair. Then
+    the StyleGAN3-T DRS path (stylegan3_drs_launches). Plain versions run in
+    blocks of 8 images. Writes chiprun_out/stylegan3_kernels.json."""
     import importlib.util
+    import inspect
+
+    import torch.nn.functional as F
 
     from diagan_tpu_torch.models.stylegan3 import SynthesisLayer, synthesis_schedule
     from diagan_tpu_torch.ops import _build, fused_act, upfirdn2d, upfirdn2d_plain
     from diagan_tpu_torch.ops.upfirdn2d import fir_instance
 
+    if fir_against is None:
+        fir_against = [against_fir(root, f"-{i}") for i, root in enumerate(against)]
     for root in against:
         spec = importlib.util.spec_from_file_location(
             "against_fused_act", Path(root) / "diagan_tpu_torch" / "ops" / "fused_act.py")
         other = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(other)
-        ours, theirs = flr_fwd_ptx(fused_act, dev, True), flr_fwd_ptx(other, dev, False)
+        # a ROOT from before the CLAMP build has no `clamp` argument
+        has_clamp = "clamp" in inspect.signature(other._kernels()[0].fn).parameters
+        ours, theirs = flr_fwd_ptx(fused_act, dev, True), flr_fwd_ptx(other, dev, has_clamp)
         params = len(re.findall(r"\.param ", ours[:ours.index("{")]))
         # this tree's `clamp` follows `scale`, the eleventh parameter (0-based 11)
-        a, b = ptx_body(ours, dropped_param=11), ptx_body(theirs)
+        a, b = ptx_body(ours, dropped_param=None if has_clamp else 11), ptx_body(theirs)
         check(a == b, f"flr_fwd with CLAMP off differs from {root}'s PTX "
                       f"({len(a)} against {len(b)} instructions)")
         print(f"flr_fwd, CLAMP and STYLED off: the PTX of {root} instruction for instruction "
@@ -5324,15 +5347,47 @@ def stylegan3_kernels(dev, smi, against=()):
                 del ref_y
             check(err <= 1e-5 * top, f"{spec['name']} {what} ({inst}): err {err} > 1e-5 x {top}")
             worst = max(worst, err / top)
+            yardstick = {}
+            if inst in ("fir24x_up4", "fir24y_up4"):  # the library's call, plain on 8 images
+                w = taps.expand(x.shape[1], 1, *taps.shape).contiguous()
+                crop = (0, taps.shape[1] - 1 - pad[0]) if u[0] == 4 else (taps.shape[0] - 1 - pad[2], 0)
+
+                def lib(t):
+                    return F.conv_transpose2d(t, w, stride=(u[1], u[0]), padding=crop,
+                                              groups=t.shape[1])
+                with torch.no_grad():  # compared in blocks of 8 images: L10's y is 20.7 GB
+                    lib_err = max(max_err(lib(x[i:i + 8]), y[i:i + 8]) for i in range(0, n, 8))
+                    check(lib_err <= 1e-5 * top,
+                          f"{spec['name']} {what}: the conv_transpose2d yardstick disagrees")
+                    yardstick = {"library_ms": cuda_ms(lambda: lib(x), iters=2, warmup=1),
+                                 "plain_ms_8_images": cuda_ms(lambda: plain(x[:8]), iters=1,
+                                                              warmup=1)}
+                del w
+            others = {}
+            if taps is not None:
+                for o in fir_against:
+                    check(torch.equal(o(x, taps, u, d, pad), y),
+                          f"{spec['name']} {what}: {o.root}'s {o.took[inst]} gives other bits "
+                          f"than {inst}")
+                    others[o.root] = lambda o=o: o(x, taps, u, d, pad)
             with torch.no_grad():
-                ms = cuda_ms(fn, iters=5, warmup=1)
+                if others:  # in turns: this, the others, the others reversed, this
+                    turns = {"a": fn, **others}
+                    t = {k: [] for k in turns}
+                    for k in [*turns, *reversed(turns)]:
+                        t[k].append(cuda_ms(turns[k], iters=5, warmup=1))
+                    ms = sum(t["a"]) / 2
+                else:
+                    ms = cuda_ms(fn, iters=5, warmup=1)
             kt = 1 if taps is None else -(-taps.shape[1] // u[0]) * -(-taps.shape[0] // u[1])
             b_ms, kind = bound(4 * (x.numel() + y.numel()), 0 if taps is None else
                                2 * y.numel() * kt)
             rows.append({"layer": spec["name"], "pass": what, "kernel": inst,
                          "shape": [list(x.shape), list(y.shape)], "pad": pad, "ms": ms,
                          "bound_ms": b_ms, "bound_by": kind, "roofline_pct": 100 * b_ms / ms,
-                         "rel_err": err / top})
+                         "rel_err": err / top, **yardstick,
+                         "against": {o.root: {"kernel": o.took[inst], "ms": sum(t[o.root]) / 2}
+                                     for o in fir_against if o.root in others}})
             x = y
             del y
         del x, layer
@@ -5346,16 +5401,24 @@ def stylegan3_kernels(dev, smi, against=()):
           "clamped_leaky_relu on a forced input differs from plain or does not clamp")
     del u, got, want
     for r in rows:
+        other = "".join(f"; {root} {a['kernel']} {a['ms']:.4f} ms (the same bits)"
+                        for root, a in r["against"].items())
+        if "library_ms" in r:
+            other += (f"; conv_transpose2d {r['library_ms']:.4f} ms, plain on 8 images "
+                      f"{r['plain_ms_8_images']:.4f} ms")
         print(f"  {r['layer']:12s} {r['pass']:6s} {r['kernel']:18s} {r['shape'][0]} -> "
               f"{r['shape'][1][2:]}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), {r['roofline_pct']:.1f}%, rel err {r['rel_err']:.2e}")
+              f"({r['bound_by']}), {r['roofline_pct']:.1f}%, rel err {r['rel_err']:.2e}{other}")
     by = {}
     for r in rows:
-        k = by.setdefault(r["kernel"], [0.0, 0.0, 0])
+        k = by.setdefault(r["kernel"], [0.0, 0.0, 0, {}])
         k[0], k[1], k[2] = k[0] + r["ms"], k[1] + r["bound_ms"], k[2] + 1
-    for k, (ms, b_ms, cnt) in sorted(by.items()):
+        for root, a in r["against"].items():
+            k[3][root] = k[3].get(root, 0.0) + a["ms"]
+    for k, (ms, b_ms, cnt, other) in sorted(by.items()):
+        vs = "".join(f"; {root} {t:.3f} ms" for root, t in other.items())
         print(f"stylegan3 at batch {n}: {k}: {cnt} passes, {ms:.3f} ms, bound {b_ms:.3f} ms, "
-              f"{100 * b_ms / ms:.1f}% [{smi}]")
+              f"{100 * b_ms / ms:.1f}%{vs} [{smi}]")
     total = sum(r["ms"] for r in rows)
     print(f"stylegan3 kernels: {len(rows)} passes of a batch of {n} match plain (fir rel err "
           f"<= {worst:.2e}, tol 1e-5; the clamped activation bit for bit, the clamp binding "
@@ -5364,7 +5427,52 @@ def stylegan3_kernels(dev, smi, against=()):
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "stylegan3_kernels.json").write_text(json.dumps({"card": smi, "rows": rows}, indent=1))
+    stylegan3_drs_launches(dev, smi)
     return rows
+
+
+def stylegan3_drs_launches(dev, smi):
+    """StyleGAN3-T's DRS path as sg3t_256.drs drives it (the registry's ffhq /
+    stylegan3 bundle at 256 px, eval.evaluate's closures, DRS.generate_images;
+    its initial weights, batch 16, 2 warm-up batches, 16 images): phase 4's
+    check that kernel A's generic instance does not launch, the up-4 pair
+    and the clamped activation launched, and in one G forward under a
+    profiler session the program's counters: every 24-tap up-4 call
+    (`fir_up4_calls`) ran on the pair (`fir_up4_family`)."""
+    from diagan_tpu_torch.eval.drs import DRS
+    from diagan_tpu_torch.eval.evaluate import make_disc_fn, make_gen_fn
+    from diagan_tpu_torch.models.registry import get_gan_model
+    from diagan_tpu_torch.ops import _build
+    from diagan_tpu_torch.utils import trace
+
+    torch.manual_seed(SEED + 31)
+    bundle = get_gan_model("ffhq", model="stylegan3", drs=True, device=dev, size=256)
+    gen_fn = make_gen_fn(bundle.gen, generator=torch.Generator(dev).manual_seed(SEED + 32))
+    disc_fn = make_disc_fn(bundle.disc_drs)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    drs = DRS(gen_fn, disc_fn, 512, generator=torch.Generator(dev).manual_seed(SEED + 33),
+              batch_size=16, warmup_batches=2, device=dev)
+    images = drs.generate_images(16)
+    torch.cuda.synchronize()
+    t_drs = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    fir = fir_launches("StyleGAN3-T DRS")
+    check(images.shape == (16, 256, 256, 3) and bool(np.isfinite(images).all()),
+          f"StyleGAN3-T DRS gave {images.shape}, or values that are not finite")
+    check(fir["fir24x_up4"] > 0 and fir["fir24y_up4"] > 0 and launches["clamped_leaky_relu"] > 0,
+          f"StyleGAN3-T DRS launched {launches}, kernel A {fir}")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        gen_fn(torch.randn((4, 512), device=dev))
+        torch.cuda.synchronize()
+    counters = trace.counters()
+    check(counters.get("fir_up4_calls") == counters.get("fir_up4_family") == 8,
+          f"one StyleGAN3-T G forward counted {counters}")
+    print(f"StyleGAN3-T DRS: 16 accepted of {drs.proposed} proposed in {t_drs:.2f} s "
+          f"(batch 16, warm-up included); one G forward counted fir_up4_calls "
+          f"{counters['fir_up4_calls']}, fir_up4_family {counters['fir_up4_family']} [{smi}]")
+    del bundle, drs, gen_fn, disc_fn
+    torch.cuda.empty_cache()
 
 
 def main(argv=None):
@@ -5497,7 +5605,7 @@ def main(argv=None):
     warp_kernels += time_warp2(dev, rng_b, smi, errs, against)
     # 3e. StyleGAN3-T's kernel A passes and clamped activation at its cell's shapes
     phase("3e. StyleGAN3-T's kernels at batch 64")
-    stylegan3_kernels(dev, smi, args.against or [])
+    stylegan3_kernels(dev, smi, args.against or [], fir_against)
     if args.kernels_only:
         print(smi)
         return 0

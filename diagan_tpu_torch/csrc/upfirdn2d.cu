@@ -38,6 +38,8 @@
 //   7    fir12y_down2   12x1  1,1     1,2       ADA y down-pass, y up backward (16,3,1304,652)
 //   8    fir12x_up2     1x12  2,1     1,1       ADA x up-pass (16,3,1304,652), x down backward
 //   9    fir12x_down2   1x12  1,1     2,1       ADA x down-pass, x up backward (16,3,1304,1304)
+//   10   fir24x_up4     1x24  4,1     1,1       StyleGAN3-T x up-pass, float32 only (64,256,150,150)
+//   11   fir24y_up4     24x1  1,4     1,1       StyleGAN3-T y up-pass, float32 only (64,256,150,562)
 //   0    generic        any   any     any       anything else, channels-last included
 //
 // Instances 1-8 on float32, and 2-8 on bfloat16, are fir_kernel; its design
@@ -71,6 +73,29 @@
 // then every tap is a read of 32 consecutive words: no conflicts, and each
 // input byte is read from device memory once. A warp walks one output row;
 // only __syncwarp orders its copy and its reads.
+// Instances 10 and 11 are fir_up4x_kernel and fir_up4y_kernel, the 24-tap
+// up-4 passes of StyleGAN3-T's filtered leaky ReLU (the crops (-6, -9) of
+// its L3, L5, L7 and L10). Their outputs are four times their inputs, so
+// the bound is mostly the write. Polyphase, as fir_kernel at up 2, with the
+// taps, the factor and the loops fixed at compile time:
+// - x pass: lane l owns the four phases of one input position, four
+//   consecutive outputs from 7 input columns (6 taps each: the 18 taps
+//   that would hit stuffed zeros are dropped at compile time), stored as
+//   one 16-byte vector where the four are aligned (two 8-byte ones where
+//   they are 8-byte aligned, as every other row of an output of width 2
+//   mod 4 is); a pad that is not a multiple of 4 shifts the tiling by
+//   -pad mod 4 outputs, as an odd pad shifts fir_kernel's at up 2. A
+//   thread walks R rows of its column, all their loads started together;
+// - y pass: lane l owns two adjacent columns, one 8-byte load and store a
+//   row where the pair is so aligned (every row of an even width), so every
+//   load and store is coalesced; a thread owns R output rows, R a multiple
+//   of 4, and reads each of its (R + 22) / 4 + 1 input rows once into a
+//   register, from which all four phases take it;
+// - no shared memory, no barrier: one warp per (plane, row band, column
+//   tile), the bands of a column tile in one block, so that the input rows
+//   two bands of the y pass share are read from L1.
+// The products of an output are summed in the order of the generic tile
+// body (input rows, then columns, ascending), from 0.
 // fp32 accumulation in every instance; T is float or bfloat16.
 //
 // Instance 1 on bfloat16 (the 4x4 blurs of a --bf16 step) is
@@ -656,6 +681,192 @@ cudaError_t launch_xdown2(const void* x, void* y, const float* taps, const Param
 }
 
 // ---------------------------------------------------------------------------
+// Instances 10-11: fir_up4x_kernel, fir_up4y_kernel (K taps along one axis,
+// up 4 along it, down 1; float32)
+// ---------------------------------------------------------------------------
+constexpr int UP4 = 4;
+
+// Four consecutive outputs of one row at yr (output column ox0 .. ox0 + 3 of
+// a row of ow): one 16-byte store, or two 8-byte ones, where the four lie in
+// the row and are so aligned; otherwise one by one, inside the row.
+__device__ __forceinline__ void store_quad(float* yr, const float (&a)[UP4], int ox0, int ow) {
+  if (ox0 >= 0 && ox0 + UP4 <= ow) {
+    const uintptr_t at = reinterpret_cast<uintptr_t>(yr);
+    if ((at & 15) == 0) {
+      *reinterpret_cast<float4*>(yr) = make_float4(a[0], a[1], a[2], a[3]);
+      return;
+    }
+    if ((at & 7) == 0) {
+      *reinterpret_cast<float2*>(yr) = make_float2(a[0], a[1]);
+      *reinterpret_cast<float2*>(yr + 2) = make_float2(a[2], a[3]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < UP4; ++f)
+    if ((unsigned)(ox0 + f) < (unsigned)ow) yr[f] = a[f];
+}
+
+// The x pass: taps (1, K), up (4, 1). Tiles of 128 x R outputs, numbered as
+// fir_kernel's (row band fastest, then column tile, then plane).
+template <int K, int R>
+__global__ void __launch_bounds__(32 * WARPS)
+fir_up4x_kernel(const float* __restrict__ x, float* __restrict__ y,
+                const float* __restrict__ taps, Params p, Tiling tl) {
+  constexpr int NX = (UP4 - 1 + K - 1) / UP4 + 1;  // input columns a lane reads
+  const long long warp = (long long)blockIdx.x * WARPS + threadIdx.y;
+  const long long per_plane = (long long)tl.tx * tl.ty;
+  const long long z = warp / per_plane;
+  if (z >= (long long)p.N * p.C) return;
+  const int t = (int)(warp - z * per_plane);
+  const int band = t % tl.ty, col = t / tl.ty;
+  // the crop's phase: every lane's first output sits on a real input position
+  const int sx = -p.p_x0 & (UP4 - 1);
+  const int ox0 = (col * 32 + (int)threadIdx.x) * UP4 - sx;
+  if (ox0 >= p.OW) return;
+  const int ix0 = (ox0 - p.p_x0) / UP4;  // exact: a multiple of 4
+
+  float tf[K];  // the taps, flipped
+#pragma unroll
+  for (int k = 0; k < K; ++k) tf[k] = __ldg(taps + K - 1 - k);
+  bool col_in[NX];
+#pragma unroll
+  for (int c = 0; c < NX; ++c) col_in[c] = (unsigned)(ix0 + c) < (unsigned)p.W;
+  const float* xb = x + z * p.H * p.W + ix0;
+  float* yb = y + z * p.OH * p.OW + ox0;
+#pragma unroll
+  for (int e = 0; e < R; ++e) {
+    const int oy = band * R + e;
+    const bool out_in = oy < p.OH;
+    const int iy = oy - p.p_y0;  // kh = 1, up = down = 1 along y
+    const bool row_in = out_in && (unsigned)iy < (unsigned)p.H;
+    float v[NX];
+#pragma unroll
+    for (int c = 0; c < NX; ++c)
+      v[c] = (row_in && col_in[c]) ? __ldg(xb + (long long)iy * p.W + c) : 0.f;
+    // input c feeds output f through tap 4c - f
+    float acc[UP4];
+#pragma unroll
+    for (int f = 0; f < UP4; ++f) {
+      acc[f] = 0.f;
+#pragma unroll
+      for (int c = 0; c < NX; ++c) {
+        const int kx = c * UP4 - f;
+        if (kx >= 0 && kx < K) acc[f] += tf[kx] * v[c];
+      }
+    }
+    if (out_in) store_quad(yb + (long long)oy * p.OW, acc, ox0, p.OW);
+  }
+}
+
+// Two neighbouring values of one row at p: one 8-byte access where both
+// lie in the row (`both`) and p is 8-byte aligned, else one by one (`in`:
+// which lie in the row; the others read as 0 and are not written).
+__device__ __forceinline__ float2 load_two(const float* p, bool both, const bool (&in)[2]) {
+  if (both && (reinterpret_cast<uintptr_t>(p) & 7) == 0)
+    return __ldg(reinterpret_cast<const float2*>(p));
+  return make_float2(in[0] ? __ldg(p) : 0.f, in[1] ? __ldg(p + 1) : 0.f);
+}
+__device__ __forceinline__ void store_two(float* p, float2 v, bool both, const bool (&in)[2]) {
+  if (both && (reinterpret_cast<uintptr_t>(p) & 7) == 0) {
+    *reinterpret_cast<float2*>(p) = v;
+    return;
+  }
+  if (in[0]) p[0] = v.x;
+  if (in[1]) p[1] = v.y;
+}
+
+// The y pass: taps (K, 1), up (1, 4). Tiles of 64 x R outputs, two
+// adjacent columns a lane, numbered as fir_kernel's.
+template <int K, int R>
+__global__ void __launch_bounds__(32 * WARPS)
+fir_up4y_kernel(const float* __restrict__ x, float* __restrict__ y,
+                const float* __restrict__ taps, Params p, Tiling tl) {
+  static_assert(R % UP4 == 0, "instance shape");
+  constexpr int NY = (R - 1 + K - 1) / UP4 + 1;  // input rows a thread reads
+  const long long warp = (long long)blockIdx.x * WARPS + threadIdx.y;
+  const long long per_plane = (long long)tl.tx * tl.ty;
+  const long long z = warp / per_plane;
+  if (z >= (long long)p.N * p.C) return;
+  const int t = (int)(warp - z * per_plane);
+  const int band = t % tl.ty, col = t / tl.ty;
+  const int ox0 = (col * 32 + (int)threadIdx.x) * 2;
+  if (ox0 >= p.OW) return;
+  // the crop's phase: every thread's first output row sits on a real input row
+  const int sy = -p.p_y0 & (UP4 - 1);
+  const int oy0 = band * R - sy;
+  const int iy0 = (oy0 - p.p_y0) / UP4;  // exact: a multiple of 4
+  const int ix0 = ox0 - p.p_x0;          // kw = 1, up = down = 1 along x
+
+  float tf[K];  // flipped
+#pragma unroll
+  for (int k = 0; k < K; ++k) tf[k] = __ldg(taps + K - 1 - k);
+  const bool col_in[2] = {(unsigned)ix0 < (unsigned)p.W, (unsigned)(ix0 + 1) < (unsigned)p.W};
+  const bool out_in[2] = {true, ox0 + 1 < p.OW};
+  const float* xb = x + z * p.H * p.W + ix0;
+  float2 acc[R];
+#pragma unroll
+  for (int e = 0; e < R; ++e) acc[e] = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int r = 0; r < NY; ++r) {
+    const int iy = iy0 + r;
+    const float2 v = (unsigned)iy < (unsigned)p.H
+                         ? load_two(xb + (long long)iy * p.W, col_in[0] && col_in[1], col_in)
+                         : make_float2(0.f, 0.f);
+    // input row r feeds output row e through tap 4r - e
+#pragma unroll
+    for (int e = 0; e < R; ++e) {
+      const int ky = r * UP4 - e;
+      if (ky < 0 || ky >= K) continue;
+      acc[e].x += tf[ky] * v.x;
+      acc[e].y += tf[ky] * v.y;
+    }
+  }
+  float* yb = y + z * p.OH * p.OW + ox0;
+#pragma unroll
+  for (int e = 0; e < R; ++e) {
+    const int oy = oy0 + e;
+    if ((unsigned)oy < (unsigned)p.OH)
+      store_two(yb + (long long)oy * p.OW, acc[e], out_in[1], out_in);
+  }
+}
+
+// R of the up-4 passes: RX rows a thread of the x pass, RY of the y pass
+// (12 input rows for 24 output rows; 40 and 76 registers, no spill). On an
+// H100 at StyleGAN3-T's shapes, batch 64, the 8 passes took 26.9 ms against
+// a bytes bound of 18.9: RX, RY = 4, 16 28.4 ms; 1, 8 28.2; 16, 16 27.9;
+// 4, 32 31.3; one column a lane in the y pass 35.0; column tiles fastest or
+// streaming stores within 0.7% either way. A plain fill of the card reached
+// 2.84 TB/s (85% of 3.35), and the pair runs at 70% of the bound.
+constexpr int UP4_RX = 8, UP4_RY = 24;
+
+template <int K>
+cudaError_t launch_up4x(const void* x, void* y, const float* taps, const Params& p,
+                        cudaStream_t s) {
+  Tiling tl;
+  tl.tx = (p.OW + (-p.p_x0 & (UP4 - 1)) + 32 * UP4 - 1) / (32 * UP4);
+  tl.ty = (p.OH + UP4_RX - 1) / UP4_RX;
+  const long long blocks = ((long long)p.N * p.C * tl.tx * tl.ty + WARPS - 1) / WARPS;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  fir_up4x_kernel<K, UP4_RX><<<(unsigned)blocks, dim3(32, WARPS), 0, s>>>(
+      static_cast<const float*>(x), static_cast<float*>(y), taps, p, tl);
+  return cudaGetLastError();
+}
+
+template <int K>
+cudaError_t launch_up4y(const void* x, void* y, const float* taps, const Params& p,
+                        cudaStream_t s) {
+  Tiling tl;
+  tl.tx = (p.OW + 63) / 64;
+  tl.ty = (p.OH + (-p.p_y0 & (UP4 - 1)) + UP4_RY - 1) / UP4_RY;
+  const long long blocks = ((long long)p.N * p.C * tl.tx * tl.ty + WARPS - 1) / WARPS;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  fir_up4y_kernel<K, UP4_RY><<<(unsigned)blocks, dim3(32, WARPS), 0, s>>>(
+      static_cast<const float*>(x), static_cast<float*>(y), taps, p, tl);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // The generic instance
 // ---------------------------------------------------------------------------
 constexpr int TILE = 32;   // output tile is TILE x TILE
@@ -935,7 +1146,7 @@ cudaError_t launch_generic(const void* x, void* y, const float* taps, const Para
 // The codes of ops/upfirdn2d.py FIR_INSTANCES, in the same order.
 enum Instance {
   GENERIC = 0, FIR4X4, FIR4X4_UP2, FIR4X4_DOWN2, FIR6X6, FIR6Y,
-  FIR12Y_UP2, FIR12Y_DOWN2, FIR12X_UP2, FIR12X_DOWN2, N_INSTANCES
+  FIR12Y_UP2, FIR12Y_DOWN2, FIR12X_UP2, FIR12X_DOWN2, FIR24X_UP4, FIR24Y_UP4, N_INSTANCES
 };
 
 struct Family {
@@ -946,7 +1157,7 @@ struct Family {
 constexpr Family FAMILIES[N_INSTANCES] = {
     {0, 0, 0, 0, 0, 0}, {4, 4, 1, 1, 1, 1}, {4, 4, 2, 2, 1, 1}, {4, 4, 1, 1, 2, 2},
     {6, 6, 1, 1, 1, 1}, {6, 1, 1, 1, 1, 1}, {12, 1, 1, 2, 1, 1}, {12, 1, 1, 1, 1, 2},
-    {1, 12, 2, 1, 1, 1}, {1, 12, 1, 1, 2, 1}};
+    {1, 12, 2, 1, 1, 1}, {1, 12, 1, 1, 2, 1}, {1, 24, 4, 1, 1, 1}, {24, 1, 1, 4, 1, 1}};
 
 constexpr int MISMATCH = -1;  // the instance does not fit the arguments
 
@@ -976,15 +1187,21 @@ cudaError_t launch(int instance, const void* x, void* y, const float* taps, cons
     case FIR12Y_DOWN2: return launch_fir<T, 12, 1, 1, 1, 1, 2, 16>(x, y, taps, p, s);
     case FIR12X_UP2: return launch_fir<T, 1, 12, 2, 1, 1, 1, 4>(x, y, taps, p, s);
     case FIR12X_DOWN2: return launch_xdown2<T, 12>(x, y, taps, p, s);
-    default: return launch_generic<T>(x, y, taps, p, s);
+    default: break;
   }
+  if constexpr (std::is_same<T, float>::value) {  // fits() keeps bfloat16 from these
+    if (instance == FIR24X_UP4) return launch_up4x<24>(x, y, taps, p, s);
+    if (instance == FIR24Y_UP4) return launch_up4y<24>(x, y, taps, p, s);
+  }
+  return launch_generic<T>(x, y, taps, p, s);
 }
 
 // An instance other than GENERIC takes exactly its family's taps, up and
-// down, and contiguous NCHW input and output.
-bool fits(int instance, const Params& p) {
+// down, and contiguous NCHW input and output; the up-4 pair float32 alone.
+bool fits(int instance, int dtype, const Params& p) {
   if (instance < 0 || instance >= N_INSTANCES) return false;
   if (instance == GENERIC) return true;
+  if ((instance == FIR24X_UP4 || instance == FIR24Y_UP4) && dtype != 0) return false;
   const Family& f = FAMILIES[instance];
   const bool nchw = p.sxw == 1 && p.sxh == p.W && p.sxc == (long long)p.H * p.W &&
                     p.sxn == (long long)p.C * p.H * p.W && p.syw == 1 && p.syh == p.OW &&
@@ -1012,7 +1229,7 @@ extern "C" int upfirdn2d_forward(
   p.syn = syn; p.syc = syc; p.syh = syh; p.syw = syw;
   p.kh = kh; p.kw = kw; p.up_x = up_x; p.up_y = up_y;
   p.down_x = down_x; p.down_y = down_y; p.p_x0 = p_x0; p.p_y0 = p_y0;
-  if (!fits(instance, p)) return MISMATCH;
+  if (!fits(instance, dtype, p)) return MISMATCH;
   if ((long long)N * C * OH * OW == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch<float>(instance, x, y, taps, p, s);

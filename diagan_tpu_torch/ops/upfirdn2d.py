@@ -20,10 +20,13 @@ from a backward count under "upfirdn2d_backward", the others under
 "upfirdn2d".
 
 The kernel has one instance per shape family of the main paths (4x4 blurs at
-up or down 1 or 2, ADA's 12-tap passes, the polyphase 6-tap and 6x6 passes)
-and a generic one for anything else. `fir_instance` chooses it from the
-arguments alone, so the choice is testable without a card; each launch also
-counts under its instance's name in `_build.FIR_INSTANCES`.
+up or down 1 or 2, ADA's 12-tap passes, the polyphase 6-tap and 6x6 passes,
+StyleGAN3-T's 24-tap up-4 passes in float32) and a generic one for anything
+else. `fir_instance` chooses it from the arguments alone, so the choice is
+testable without a card; each launch also counts under its instance's name
+in `_build.FIR_INSTANCES`. Inside a profiler session a launch with 24 taps
+and up 4 along one axis counts `fir_up4_calls`, and `fir_up4_family` when it
+ran on the up-4 instances (utils/trace.py).
 
 Two plans of the kernel read their inputs as aligned 16-byte vectors: the
 bfloat16 instance fir4x4 (fir_vec_kernel), and the generic instance on
@@ -44,6 +47,7 @@ import numpy as np
 import torch
 
 from diagan_tpu_torch.ops import _build
+from diagan_tpu_torch.utils import trace
 
 
 def make_resample_kernel(k: Sequence[float]) -> np.ndarray:
@@ -118,7 +122,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # enum Instance), and the family each takes:
 # (kh, kw, (up_x, up_y), (down_x, down_y)) -> instance name.
 FIR_INSTANCES = ("generic", "fir4x4", "fir4x4_up2", "fir4x4_down2", "fir6x6", "fir6y",
-                 "fir12y_up2", "fir12y_down2", "fir12x_up2", "fir12x_down2")
+                 "fir12y_up2", "fir12y_down2", "fir12x_up2", "fir12x_down2", "fir24x_up4",
+                 "fir24y_up4")
 _FAMILIES = {
     (4, 4, (1, 1), (1, 1)): "fir4x4",
     (4, 4, (2, 2), (1, 1)): "fir4x4_up2",
@@ -129,7 +134,11 @@ _FAMILIES = {
     (12, 1, (1, 1), (1, 2)): "fir12y_down2",
     (1, 12, (2, 1), (1, 1)): "fir12x_up2",
     (1, 12, (1, 1), (2, 1)): "fir12x_down2",
+    (1, 24, (4, 1), (1, 1)): "fir24x_up4",
+    (24, 1, (1, 4), (1, 1)): "fir24y_up4",
 }
+# StyleGAN3-T's 24-tap up-4 passes: instances for float32 alone
+_UP4 = ("fir24x_up4", "fir24y_up4")
 _build.FIR_INSTANCES.update(dict.fromkeys(FIR_INSTANCES, 0))
 
 
@@ -137,12 +146,13 @@ def fir_instance(kh, kw, up, down, dtype, layout) -> str:
     """The kernel instance for taps (kh, kw), `up` and `down` (int or (x, y)),
     a float32 or bfloat16 `dtype`, and the input's memory `layout`
     (torch.contiguous_format or torch.channels_last): a family's own
-    instance for contiguous NCHW, "generic" otherwise. Pads do not matter:
-    every instance takes any pad."""
+    instance for contiguous NCHW ("generic" for bfloat16 at up 4), "generic"
+    otherwise. Pads do not matter: every instance takes any pad."""
     (up_x, up_y), (down_x, down_y) = _as_pair(up), _as_pair(down)
     if layout != torch.contiguous_format or dtype not in _DTYPE_CODE:
         return "generic"
-    return _FAMILIES.get((kh, kw, (up_x, up_y), (down_x, down_y)), "generic")
+    name = _FAMILIES.get((kh, kw, (up_x, up_y), (down_x, down_y)), "generic")
+    return "generic" if name in _UP4 and dtype != torch.float32 else name
 
 
 # csrc/upfirdn2d.cu's vector plans. fir_vec_kernel: WARPS warps a block,
@@ -400,6 +410,10 @@ def _launch(x, taps, up, down, pad, counter):
         raise RuntimeError(f"upfirdn2d kernel launch failed: cudaError {err}")
     _build.LAUNCHES[counter] += 1
     _build.FIR_INSTANCES[instance] += 1
+    if (kw, up_x) == (24, 4) or (kh, up_y) == (24, 4):
+        trace.count("fir_up4_calls")
+        if instance in _UP4:
+            trace.count("fir_up4_family")
     if x.dtype == torch.bfloat16:
         _build.count_bf16(counter)
         _build.count_bf16(f"upfirdn2d/{instance}")

@@ -27,6 +27,7 @@ _K12 = np.random.default_rng(13).standard_normal(12).astype(np.float32)
 _K6 = np.random.default_rng(14).standard_normal(6).astype(np.float32)
 _K66 = np.random.default_rng(15).standard_normal((6, 6)).astype(np.float32)
 _K44 = np.random.default_rng(16).standard_normal((4, 4)).astype(np.float32)
+_K24 = np.random.default_rng(17).standard_normal(24).astype(np.float32)
 
 # (up, down, pad, taps): the tests/test_ops.py configs (1-D tap lists), then
 # kernels that are not symmetric, so a missing flip of the taps cannot pass:
@@ -49,7 +50,8 @@ CONFIGS = [
 # the shape families of the kernel's own instances (ops/upfirdn2d.py
 # fir_instance) that CONFIGS leaves out, with taps that are not symmetric:
 # ADA's 12-tap passes at up 2 and down 2 on each axis, the polyphase 6-tap y
-# and 6x6 stride-1 passes, and the 4x4 up 2 / down 2 pair at other pads
+# and 6x6 stride-1 passes, the 4x4 up 2 / down 2 pair at other pads, and
+# StyleGAN3-T's 24-tap up-4 x and y passes with its crop -6 in front
 FAMILY_CONFIGS = [
     ((1, 2), 1, (0, 0, 6, 5), _K12.reshape(12, 1)),
     (1, (1, 2), (0, 0, 5, 5), _K12.reshape(12, 1)),
@@ -59,6 +61,8 @@ FAMILY_CONFIGS = [
     (1, 1, (3, 2, 2, 3), _K66),
     (2, 1, (1, 2), _K44),
     (1, 2, (2, 1), _K44),
+    ((4, 1), 1, (-6, 3, 0, 0), _K24.reshape(1, 24)),
+    ((1, 4), 1, (0, 0, -6, -9), _K24.reshape(24, 1)),
 ]
 
 
